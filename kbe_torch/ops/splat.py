@@ -1,0 +1,300 @@
+"""Z-buffered forward point splatting: plain PyTorch spec + CUDA kernels.
+
+Port of ``kbe_tpu/ops/splat.py`` (the XLA scatter spec) and of the TPU
+kernels that compute it on the main path: ``splat_posed.py::
+_build_posed_kernel`` (the frame loop, C = 4) and ``splat_banded.py::
+_build_banded_wide_kernel`` (the inpainting bootstrap, C = 68). Three
+passes, each a kernel in ``csrc/splat.cu``:
+
+  zee:        each point writes the key 1e6 - f*b/(z+1e-7) to its corner of
+              largest bilinear weight (ties NW, NE, SW, SE), keeping the min;
+  degrid:     opposing-pair hole closing of the z-buffer;
+  accumulate: each point adds w * payload and w to every in-image corner
+              whose z-buffer it is within +1 of.
+
+The wrappers below take the plain path only for CPU tensors; a CUDA tensor
+launches the kernel or raises. Each wrapper counts its launches in
+``LAUNCHES``, keyed ``"<pass>/c<C>"``.
+
+The pose is a (5,) f32 tensor ``(sx, sy, sz, focal, focal * baseline)`` on
+the points' device: every pass adds the shift to the points itself, so the
+frame loop passes the pose-invariant cloud (x, y pre-scaled by z/(z+1e-7)
+once per video, as ``apply_shift`` scales them) and each point's position
+is one f32 add, as in the spec.
+
+The kernels never drop a point. Float atomics make the accumulation order
+vary from run to run (about 1e-5 relative); the zee and degrid passes are
+exact.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from kbe_torch.ops import _build
+from kbe_torch.ops.geometry import project_points, splat_error
+
+_ZFAR = 1000000.0
+# the z-buffer's initial value: the order-preserving int encoding of 1e6
+# (a positive float encodes as its own bits)
+_ZFAR_KEY = int(np.float32(_ZFAR).view(np.int32))
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def _count(kernel: str, c: int) -> None:
+    LAUNCHES[f"{kernel}/c{c}"] += 1
+
+
+# ---------------------------------------------------------------- plain spec
+
+def _project(xyz, valid, pose, height: int, width: int):
+    """Shift + pinhole projection + z key, in the spec's f32 order."""
+    shifted = xyz + pose[:3]
+    u, v, z_ok = project_points(shifted, height, width, pose[3])
+    # pose[4] is focal * baseline, already rounded once to f32
+    err = splat_error(shifted[:, 2], pose[4], 1.0)
+    return u, v, err, z_ok & (valid > 0.0)
+
+
+def _neighbor_weights(u, v):
+    """Corner coords (N, 4) and bilinear weights (N, 4), order NW NE SW SE."""
+    x0 = torch.floor(u)
+    y0 = torch.floor(v)
+    w_nw = (x0 + 1.0 - u) * (y0 + 1.0 - v)
+    w_ne = (u - x0) * (y0 + 1.0 - v)
+    w_sw = (x0 + 1.0 - u) * (v - y0)
+    w_se = (u - x0) * (v - y0)
+    xi = torch.stack([x0, x0 + 1.0, x0, x0 + 1.0], dim=-1)
+    yi = torch.stack([y0, y0, y0 + 1.0, y0 + 1.0], dim=-1)
+    return xi, yi, torch.stack([w_nw, w_ne, w_sw, w_se], dim=-1)
+
+
+def _flat_index(xi, yi, height: int, width: int, ok):
+    """Row-major pixel index; outside/invalid -> the dead slot H*W."""
+    inb = (xi >= 0) & (xi < width) & (yi >= 0) & (yi < height) & ok
+    flat = yi.clamp(0, height - 1).long() * width \
+        + xi.clamp(0, width - 1).long()
+    return torch.where(inb, flat, torch.full_like(flat, height * width)), inb
+
+
+def zee_plain(xyz, valid, pose, height: int, width: int) -> torch.Tensor:
+    """Scatter-min z-buffer, (H, W) f32."""
+    u, v, err, ok = _project(xyz, valid, pose, height, width)
+    xi, yi, w = _neighbor_weights(u, v)
+    # the first corner of largest weight (NW, NE, SW, SE order)
+    best = torch.zeros_like(u, dtype=torch.long)
+    for k in range(1, 4):
+        best = torch.where(w[:, k] > torch.gather(w, 1, best[:, None])[:, 0],
+                           k, best)
+    best = best[:, None]
+    flat, _ = _flat_index(torch.gather(xi, 1, best)[:, 0],
+                          torch.gather(yi, 1, best)[:, 0], height, width, ok)
+    zee = torch.full((height * width + 1,), _ZFAR, dtype=torch.float32,
+                     device=xyz.device)
+    zee.scatter_reduce_(0, flat, err, reduce="amin")
+    return zee[:-1].reshape(height, width)
+
+
+def degrid_plain(zee: torch.Tensor) -> torch.Tensor:
+    """Opposing-pair hole closing of an (H, W) z-buffer."""
+    h, w = zee.shape
+    p = torch.nn.functional.pad(zee, (1, 1, 1, 1), value=float("inf"))
+
+    def nb(dy, dx):
+        return p[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+
+    total = torch.zeros_like(zee)
+    count = torch.zeros_like(zee)
+    for dx, dy in ((1, 0), (0, 1), (1, 1), (1, -1)):
+        one = nb(dy, dx)
+        two = nb(-dy, -dx)
+        good = (zee >= one + 1.0) & (zee >= two + 1.0)
+        total = total + torch.where(good, one + two, torch.zeros_like(zee))
+        count = count + torch.where(good, torch.full_like(zee, 2.0),
+                                    torch.zeros_like(zee))
+    avg = total / torch.clamp(count, min=1.0)
+    return torch.where(count > 0.0, torch.minimum(zee, avg), zee)
+
+
+def accumulate_plain(xyz, valid, payload, pose, zee, height: int,
+                     width: int) -> torch.Tensor:
+    """Weighted 4-corner scatter-add; returns the raw (H*W, C+1) sums."""
+    n, c = payload.shape
+    u, v, err, ok = _project(xyz, valid, pose, height, width)
+    xi, yi, w = _neighbor_weights(u, v)
+    flat, inb = _flat_index(xi, yi, height, width, ok[:, None])
+    zflat = zee.reshape(-1)
+    zn = torch.where(inb, zflat[flat.clamp(max=height * width - 1)],
+                     torch.full_like(w, -float("inf")))
+    vis = inb & (err[:, None] <= zn + 1.0)
+    weights = torch.where(vis, w, torch.zeros_like(w))
+    ones = torch.ones((n, 1), dtype=payload.dtype, device=payload.device)
+    full = torch.cat([payload, ones], dim=-1)
+    idx = torch.where(vis, flat, torch.full_like(flat, height * width))
+    vals = (weights[..., None] * full[:, None, :]).reshape(-1, c + 1)
+    out = torch.zeros((height * width + 1, c + 1), dtype=torch.float32,
+                      device=payload.device)
+    out.index_add_(0, idx.reshape(-1), vals)
+    return out[:-1]
+
+
+# ------------------------------------------------------------ CUDA wrappers
+
+def _check_inputs(xyz, valid, pose, payload=None):
+    for name, t in (("xyz", xyz), ("valid", valid), ("pose", pose),
+                    ("payload", payload)):
+        if t is None:
+            continue
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous f32 CUDA tensor")
+        if t.device != xyz.device:
+            raise ValueError(f"{name} is on {t.device}, xyz on {xyz.device}")
+    n = xyz.shape[0]
+    if xyz.shape != (n, 3) or valid.shape != (n,) or pose.shape != (5,):
+        raise ValueError("expected xyz (N, 3), valid (N,), pose (5,)")
+    if payload is not None and (payload.ndim != 2 or payload.shape[0] != n):
+        raise ValueError("expected payload (N, C)")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def zee_cuda(xyz, valid, pose, height: int, width: int,
+             c: int) -> torch.Tensor:
+    """Kernel ``splat_zee``: the (H*W,) int32 key-encoded z-buffer.
+    ``c`` only names the launch in ``LAUNCHES``."""
+    _check_inputs(xyz, valid, pose)
+    zee = torch.full((height * width,), _ZFAR_KEY, dtype=torch.int32,
+                     device=xyz.device)
+    lib = _build.lib("splat")
+    _count("zee", c)
+    _build.check(lib.kbe_splat_zee(
+        xyz.data_ptr(), valid.data_ptr(), pose.data_ptr(), xyz.shape[0],
+        height, width, zee.data_ptr(), _stream(xyz)), "splat_zee")
+    return zee
+
+
+def degrid_cuda(zee_keys: torch.Tensor, height: int, width: int,
+                c: int) -> torch.Tensor:
+    """Kernel ``splat_degrid``: key-encoded (H*W,) int32 -> (H, W) f32."""
+    if (not zee_keys.is_cuda or zee_keys.dtype != torch.int32
+            or zee_keys.shape != (height * width,)
+            or not zee_keys.is_contiguous()):
+        raise ValueError("expected a contiguous (H*W,) int32 CUDA z-buffer")
+    out = torch.empty((height, width), dtype=torch.float32,
+                      device=zee_keys.device)
+    lib = _build.lib("splat")
+    _count("degrid", c)
+    _build.check(lib.kbe_splat_degrid(
+        zee_keys.data_ptr(), height, width, out.data_ptr(),
+        _stream(zee_keys)), "splat_degrid")
+    return out
+
+
+def accumulate_cuda(xyz, valid, payload, pose, zee, height: int,
+                    width: int) -> torch.Tensor:
+    """Kernel ``splat_accumulate``: the raw (H*W, C+1) f32 sums."""
+    _check_inputs(xyz, valid, pose, payload)
+    if (not zee.is_cuda or zee.dtype != torch.float32
+            or zee.shape != (height, width) or not zee.is_contiguous()):
+        raise ValueError("expected a contiguous (H, W) f32 CUDA z-buffer")
+    c = payload.shape[1]
+    acc = torch.zeros((height * width, c + 1), dtype=torch.float32,
+                      device=xyz.device)
+    lib = _build.lib("splat")
+    _count("accumulate", c)
+    _build.check(lib.kbe_splat_accumulate(
+        xyz.data_ptr(), valid.data_ptr(), payload.data_ptr(),
+        pose.data_ptr(), zee.data_ptr(), xyz.shape[0], c, height, width,
+        acc.data_ptr(), _stream(xyz)), "splat_accumulate")
+    return acc
+
+
+def decode_keys(keys: torch.Tensor) -> torch.Tensor:
+    """Inverse of the kernels' order-preserving float -> int32 encoding."""
+    flipped = torch.where(keys < 0, keys ^ 0x7fffffff, keys)
+    return flipped.view(torch.float32)
+
+
+# ----------------------------------------------------------------- renderers
+
+def splat(xyz, payload, valid, pose, height: int,
+          width: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Render one cloud at one pose.
+
+    ``xyz`` (N, 3), ``payload`` (N, C), ``valid`` (N,), ``pose`` (5,), all
+    f32 on one device. Returns (rendered (H, W, C), existing (H, W, 1)).
+    """
+    c = payload.shape[1]
+    if xyz.is_cuda:
+        keys = zee_cuda(xyz, valid, pose, height, width, c)
+        zee = degrid_cuda(keys, height, width, c)
+        acc = accumulate_cuda(xyz, valid, payload, pose, zee, height, width)
+    else:
+        zee = degrid_plain(zee_plain(xyz, valid, pose, height, width))
+        acc = accumulate_plain(xyz, valid, payload, pose, zee, height, width)
+    rendered = acc[:, :c] / (acc[:, c:] + 1e-7)
+    return (rendered.reshape(height, width, c),
+            acc[:, c:].reshape(height, width, 1))
+
+
+def make_pose(shift: torch.Tensor, focal, baseline) -> torch.Tensor:
+    """(sx, sy, sz, focal, focal * baseline) as a (5,) f32 tensor on the
+    shift's device (focal*baseline rounded once to f32, as the spec)."""
+    f = torch.as_tensor(focal, dtype=torch.float32, device=shift.device)
+    return torch.stack([shift[0], shift[1], shift[2], f,
+                        f * baseline]).to(torch.float32).contiguous()
+
+
+def render_pointcloud(xyz: torch.Tensor, data: torch.Tensor, height: int,
+                      width: int, focal, baseline,
+                      valid: Optional[torch.Tensor] = None):
+    """``kbe_tpu.ops.splat.render_pointcloud``: (B, N, 3) points, (B, N, C)
+    payload, optional (B, N) mask -> ((B, H, W, C), (B, H, W, 1))."""
+    if valid is None:
+        valid = torch.ones(xyz.shape[:2], dtype=torch.float32,
+                           device=xyz.device)
+    zero = torch.zeros(3, dtype=torch.float32, device=xyz.device)
+    pose = make_pose(zero, focal, baseline)
+    outs = [splat(xyz[b].float().contiguous(), data[b].float().contiguous(),
+                  valid[b].float().contiguous(), pose, height, width)
+            for b in range(xyz.shape[0])]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
+class PosedScene(NamedTuple):
+    """Pose-invariant render state of a grid cloud, made once per video.
+
+    ``xyz`` (N, 3) with x, y pre-scaled by z/(z+1e-7), so ``x + sx`` equals
+    ``apply_shift``; ``payload`` (N, C); ``valid`` (N,) 0/1."""
+
+    xyz: torch.Tensor
+    payload: torch.Tensor
+    valid: torch.Tensor
+
+
+def prepare_scene(xyz: torch.Tensor, data: torch.Tensor,
+                  valid: torch.Tensor) -> PosedScene:
+    """``xyz`` (G, H, W, 3), ``data`` (G, H, W, C), ``valid`` (G, H, W)."""
+    z = xyz[..., 2].float()
+    scale = z / (z + 1e-7)
+    pts = torch.stack([xyz[..., 0].float() * scale,
+                       xyz[..., 1].float() * scale, z], dim=-1)
+    c = data.shape[-1]
+    return PosedScene(pts.reshape(-1, 3).contiguous(),
+                      data.float().reshape(-1, c).contiguous(),
+                      (valid > 0.0).float().reshape(-1).contiguous())
+
+
+def render_posed(scene: PosedScene, pose: torch.Tensor, height: int,
+                 width: int):
+    """Render the scene at ``pose`` (see ``make_pose``): what the spec gives
+    for ``apply_shift(xyz, shift)`` at that focal."""
+    return splat(scene.xyz, scene.payload, scene.valid, pose, height, width)
