@@ -16,7 +16,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      the frames and that every kernel ran (77 splats, 75 fills);
   5. card vs CPU: the effect at 256^2, f32, 5 steps, same weights, mean
      SSIM of the frames >= 0.99;
-  6. the ``{"kernels": [...]}`` line, then the device line last.
+  6. the other entry points and inference modes:
+     (e) every grid renderer (``render_grids_banded``, ``_routed`` at C=4
+         and C=68, ``_pallas``, ``_delta``) on the card against the plain
+         passes at 1024^2, three launches a call, then driven over the
+         poses of a move for its launch count;
+     (f) ``fill_disocclusion_pallas`` under every phase schedule, with and
+         without the ROI, at 8 and 128 steps: bit-identical to the plain
+         fill, one launch each;
+     (g) the inference modes at 1024^2, 9 steps, production precision mix,
+         through ``KenBurnsPipeline.__call__``: dolly, 2D, pretrained
+         refine, partial conv, dual net, routed + whole-frame fill, delta,
+         and the one-phase and fused fill schedules; frames and launch
+         counts checked;
+     (h) the ``'routed'`` effect against the ``'auto'`` one, same models;
+     (i) ``load_scene`` and ``autozoom`` on the card (256 candidates), and
+         the card's choice against the CPU's at 256^2;
+     (j) the CLI's ``run`` at 256^2, defaults and ``--dolly``;
+  7. the ``{"kernels": [...]}`` line, then the device line last.
 
 Tolerances: the zee and degrid passes and the fill are exact (bit-equal to
 the plain version). The accumulation uses float atomics, whose order varies
@@ -36,6 +53,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 SIZE = 1024
 STEPS = 75
+MODE_STEPS = 9              # depth of the other modes' runs
 FOCAL, BASELINE = 512.0, 120.0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
@@ -44,6 +62,13 @@ RTOL, ATOL = 1e-5, 2e-4
 K1 = "kbe_tpu/ops/splat_posed.py:206"         # _build_posed_kernel
 K3 = "kbe_tpu/ops/splat_banded.py:398"        # _build_banded_wide_kernel
 K2 = "kbe_tpu/ops/discfill_pallas.py:451"     # _build_gated_flagging_kernel
+K4 = "kbe_tpu/ops/splat_banded.py:198"        # _build_banded_kernel
+K5 = "kbe_tpu/ops/splat_routed.py:132"        # _build_kernel
+K6 = "kbe_tpu/ops/discfill_pallas.py:87"      # _build_kernel (one phase)
+K6_FUSED = "kbe_tpu/ops/discfill_pallas.py:376"   # _build_fused_kernel
+K7_ZEE = "kbe_tpu/ops/legacy/splat_pallas.py:68"      # _build_zee
+K7_ACC = "kbe_tpu/ops/legacy/splat_pallas.py:129"     # _build_acc
+K7_DELTA = "kbe_tpu/ops/legacy/splat_delta.py:85"     # _build_delta_kernel
 SPLAT_SRC = "kbe_torch/ops/csrc/splat.cu"
 FILL_SRC = "kbe_torch/ops/csrc/discfill.cu"
 
@@ -156,8 +181,12 @@ def march_steps(depth, steps: int, roi) -> int:
     return total
 
 
-def splat_phase(label, xyz, payload, valid, pose, replaces, rows):
-    """Each splat kernel against its plain version on the same inputs."""
+def splat_phase(label, xyz, payload, valid, pose, replaces, rows,
+                entry=None):
+    """Each splat kernel against its plain version on the same inputs.
+    ``replaces`` is one TPU kernel, or one per pass (zee, degrid,
+    accumulate); ``entry`` names the entry point in the rows of a renderer
+    off the main path, whose launch counts the caller fills in."""
     import torch
     from kbe_torch.ops import splat as S
 
@@ -206,18 +235,24 @@ def splat_phase(label, xyz, payload, valid, pose, replaces, rows):
         f"{pms_zee:.4f} degrid {pms_deg:.4f} accumulate {pms_acc:.4f}")
     hw = h * w
     tag = f"c{c}"
-    for kern, err, ms, pms, nbytes, nops in (
+    if isinstance(replaces, str):
+        replaces = (replaces,) * 3
+    for (kern, err, ms, pms, nbytes, nops), repl in zip((
             ("zee", e_zee, ms_zee, pms_zee, n * 16 + 20 + hw * 4, n * 20),
             ("degrid", e_deg, ms_deg, pms_deg, hw * 8, hw * 20),
             ("accumulate", e_acc, ms_acc, pms_acc,
              n * (16 + 4 * c) + 20 + hw * 4 + hw * (c + 1) * 4,
-             n * (20 + 4 * 2 * (c + 1)))):
+             n * (20 + 4 * 2 * (c + 1)))), replaces):
         b_ms, b_by = bound(nbytes, nops)
-        rows.append({"name": f"splat_{kern}[{tag}]", "route": "cuda",
-                     "source": SPLAT_SRC, "replaces": replaces,
-                     "count_key": f"{kern}/{tag}", "max_abs_err": err,
-                     "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None})
+        row = {"name": f"splat_{kern}[{tag}]", "route": "cuda",
+               "source": SPLAT_SRC, "replaces": repl,
+               "count_key": f"{kern}/{tag}", "max_abs_err": err,
+               "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": None}
+        if entry is not None:
+            row["name"] += f"/{entry}"
+            row["entry"] = entry
+        rows.append(row)
     return r_k, x_k
 
 
@@ -372,6 +407,368 @@ def card_vs_cpu():
         raise AssertionError(f"card vs CPU mean SSIM {mean} < 0.99")
 
 
+def launch_counts():
+    from kbe_torch.ops import discfill, splat
+
+    counts = dict(splat.LAUNCHES)
+    counts.update(discfill.LAUNCHES)
+    return counts
+
+
+def clear_launches():
+    from kbe_torch.ops import discfill, splat
+
+    splat.LAUNCHES.clear()
+    discfill.LAUNCHES.clear()
+
+
+def expect_counts(label, want):
+    got = launch_counts()
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+
+
+def splat_counts(c: int, n: int):
+    return {f"{k}/c{c}": n for k in ("zee", "degrid", "accumulate")}
+
+
+def grid_renderer_phases(rows):
+    """(e) every ``render_grids_*`` generation on the card: the kernels
+    against the plain passes (zee and degrid bit-equal, the planes within
+    the tolerance), the entry point's own output against the plain render,
+    its three launches, and a driven run over the poses of a move."""
+    import torch
+    from kbe_torch.ops import legacy, splat as S, splat_banded, splat_routed
+    from kbe_torch.ops.geometry import apply_shift
+
+    h = w = SIZE
+    shift = torch.tensor([-9.5, 6.25, -30.0])
+    cases = (
+        ("render_grids_banded", splat_banded.render_grids_banded, 3, 4, K4),
+        ("render_grids_routed", splat_routed.render_grids_routed, 3, 4, K5),
+        ("render_grids_routed", splat_routed.render_grids_routed, 1, 68, K5),
+        ("render_grids_pallas", legacy.render_grids_pallas, 3, 4,
+         (K7_ZEE, K7_ZEE, K7_ACC)),
+        ("render_grids_delta", legacy.render_grids_delta, 3, 4, K7_DELTA))
+    zero = S.make_pose(torch.zeros(3, device="cuda"), FOCAL, BASELINE)
+    for name, fn, grids, c, replaces in cases:
+        label = f"(e) {name} G={grids} C={c}"
+        xyz, payload, valid = make_cloud(grids, c, seed=10 + c + grids,
+                                         shift=shift)
+        moved = apply_shift(xyz, shift.cuda())
+        pts = moved.reshape(-1, 3).contiguous()
+        pflat = payload.reshape(-1, c).contiguous()
+        vflat = valid.reshape(-1).contiguous()
+        first = len(rows)
+        splat_phase(label, pts, pflat, vflat, zero, replaces, rows,
+                    entry=name)
+
+        clear_launches()
+        out = fn(moved, payload, h, w, FOCAL, BASELINE, valid=valid)
+        torch.cuda.synchronize()
+        expect_counts(label, splat_counts(c, 1))
+        acc = S.accumulate_plain(pts, vflat, pflat, zero, S.degrid_plain(
+            S.zee_plain(pts, vflat, zero, h, w)), h, w)
+        assert_close(f"{label} entry render", out[0][0],
+                     (acc[:, :c] / (acc[:, c:] + 1e-7)).reshape(h, w, c))
+        assert_close(f"{label} entry existing", out[1][0],
+                     acc[:, c:].reshape(h, w, 1))
+        if len(out) == 3 and bool(out[2]):
+            raise AssertionError(f"{label}: overflow flag set")
+
+        # the entry point as a caller drives it: the wide payload twice, as
+        # the bootstrap does; the frame payload over the poses of a move
+        n = 2 if c == 68 else MODE_STEPS
+        clear_launches()
+        for i in range(n):
+            step = shift.cuda() * (i / max(n - 1, 1))
+            fn(apply_shift(xyz, step), payload, h, w, FOCAL, BASELINE,
+               valid=valid)
+        torch.cuda.synchronize()
+        expect_counts(f"{label} driven", splat_counts(c, n))
+        for row in rows[first:]:
+            row["launches"] = n
+            row["path"] = (f"{name} over {n} poses of a camera move, "
+                           f"{grids} x {SIZE}^2 points, C={c}")
+        log(f"{label}: entry point within rtol {RTOL}, atol {ATOL} of the "
+            f"plain render, overflow false, 3 launches a call, {n} calls "
+            f"driven")
+
+
+def fill_variant_phase(rows):
+    """(f) ``fill_disocclusion_pallas`` under every phase schedule: one
+    ``discfill`` launch each, bit-identical to the plain fill."""
+    import torch
+    from kbe_torch.config import EffectConfig, ZoomSettings
+    from kbe_torch.ops import discfill as D
+    from kbe_torch.ops import splat as S
+    from kbe_torch.pipeline.kenburns import fill_roi_of
+
+    shift = torch.tensor([-9.5, 6.25, -30.0])
+    xyz, payload, valid = make_cloud(3, 4, seed=1, shift=shift)
+    scene = S.prepare_scene(xyz, payload, valid)
+    render, existing = S.render_posed(
+        scene, S.make_pose(shift.cuda(), FOCAL, BASELINE), SIZE, SIZE)
+    depth = (render[..., 3:4] * (existing > 0.0)).contiguous()
+    render = render.contiguous()
+    roi = fill_roi_of(SIZE, SIZE, ZoomSettings.default_3d(SIZE, SIZE),
+                      EffectConfig())
+    tried = 0
+    for steps in (8, 128):
+        for r in (None, roi):
+            want = D.fill_plain(render, depth, steps, r)
+            for phase1 in (0, 8):
+                for phase0 in (0, 2):
+                    clear_launches()
+                    got = D.fill_disocclusion_pallas(
+                        render[None], depth[None], steps,
+                        phase1_steps=phase1, roi=r, phase0_steps=phase0,
+                        phase0_gate=0.75 if phase0 else 0.0)[0]
+                    expect_counts("(f) fill", {"discfill": 1})
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"(f) fill steps={steps} phase1={phase1} "
+                            f"phase0={phase0} roi={r}: not bit-identical, "
+                            f"max abs diff {max_err(got, want)}")
+                    tried += 1
+    h, w, c = render.shape
+    marched = march_steps(depth, 128, roi)
+    pms = timed(lambda: D.fill_plain(render, depth, 128, roi), 2)
+    b_ms, b_by = bound(h * w * (2 * c + 1) * 4, marched * 4)
+    for name, kwargs, replaces, mode in (
+            ("phase1_steps=0", dict(phase1_steps=0), K6,
+             "fill_march_phase1=0"),
+            ("phase1_steps=8,phase0_steps=0", dict(phase1_steps=8),
+             K6_FUSED, "fill_phase0=0")):
+        ms = timed(lambda: D.fill_disocclusion_pallas(
+            render[None], depth[None], 128, roi=roi, **kwargs), 20)
+        rows.append({"name": f"discfill/fill_disocclusion_pallas[{name}]",
+                     "route": "cuda", "source": FILL_SRC,
+                     "replaces": replaces, "count_key": "discfill",
+                     "entry": "fill_disocclusion_pallas", "mode": mode,
+                     "max_abs_err": 0.0, "ms": ms, "plain_ms": pms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None})
+    ms_whole = timed(lambda: D.fill_disocclusion(render[None], depth[None],
+                                                 128), 20)
+    log(f"(f) fill_disocclusion_pallas: {tried} settings (steps 8/128, "
+        f"phase1 0/8, phase0 0/2, ROI {roi} or none) bit-identical to the "
+        f"plain fill, one launch each; entry ms with the ROI "
+        f"{rows[-2]['ms']:.4f} and {rows[-1]['ms']:.4f}, whole frame "
+        f"(fill_impl='xla') {ms_whole:.4f}, plain {pms:.4f}")
+
+
+MODES = (
+    # name, EffectConfig fields, create() flags, bootstrap splats at C=68
+    ("dolly", {"dolly": True}, {}, 0),
+    ("2d", {"two_d": True}, {}, 2),
+    ("pretrained_refine", {}, {"pretrained_refine": True}, 2),
+    ("partial_inpainting", {}, {"partial_inpainting": True}, 2),
+    ("inpaint_depth", {}, {"inpaint_depth": True}, 4),
+    ("routed+xla", {"splat_method": "routed", "fill_impl": "xla"}, {}, 2),
+    ("delta", {"splat_method": "delta"}, {}, 2),
+    ("fill_march_phase1=0", {"fill_march_phase1": 0}, {}, 2),
+    ("fill_phase0=0", {"fill_phase0": 0}, {}, 2),
+)
+
+
+def mode_phases(size: int = SIZE, device: str = "cuda"):
+    """(g) every other inference mode at full width through the user's
+    entry point. Returns {mode: launch counts of its counted run}."""
+    import numpy as np
+    import torch
+    from kbe_torch.config import EffectConfig, ZoomSettings
+    from kbe_torch.data import demo_scene_image
+    from kbe_torch.pipeline import KenBurnsPipeline
+
+    on_card = device == "cuda"
+    image_np = demo_scene_image(size, size)
+    image = torch.as_tensor(image_np, device=device)[None]
+    all_counts = {}
+    for name, effect_kw, model_kw, boot in MODES:
+        effect = EffectConfig(num_steps=MODE_STEPS, **effect_kw)
+        pipe = KenBurnsPipeline.create(
+            seed=0, effect=effect, dtype=torch.bfloat16,
+            depth_dtype=torch.float32, device=device, **model_kw)
+        if on_card:
+            pipe(image_np)   # warm-up: cuDNN plans for this mode's nets
+            torch.cuda.synchronize()
+        clear_launches()
+        t0 = time.perf_counter()
+        frames = pipe(image_np)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        want = dict(splat_counts(4, MODE_STEPS), discfill=MODE_STEPS)
+        if boot:
+            want.update(splat_counts(68, boot))
+        if on_card:
+            expect_counts(f"(g) {name}", want)
+        if (frames.shape != (MODE_STEPS, size, size, 3)
+                or frames.dtype != np.uint8):
+            raise AssertionError(f"(g) {name}: frames {frames.shape} "
+                                 f"{frames.dtype}")
+        if int(frames.max()) == int(frames.min()):
+            raise AssertionError(f"(g) {name}: frames are constant")
+        if not (frames[0] != frames[-1]).any():
+            raise AssertionError(f"(g) {name}: first frame equals the last")
+        # the halves of one more run, under the windows __call__ picked
+        zoom = (ZoomSettings.default_dolly(size, size) if effect.dolly
+                else ZoomSettings.default_3d(size, size))
+        fn = pipe.effect_fn(size, size, zoom)
+        t0 = time.perf_counter()
+        state = fn.front_end(pipe.models, image)
+        if on_card:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn.render_frames(state)
+        if on_card:
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        log(f"(g) mode {name}: {size}^2 x {MODE_STEPS} frames in {wall:.4f} s"
+            f" through KenBurnsPipeline.__call__ (frames copied to the "
+            f"host); front end {t1 - t0:.4f} s, pose loop "
+            f"{(t2 - t1) / MODE_STEPS * 1e3:.3f} ms/frame; launches "
+            f"{json.dumps(counts, sort_keys=True)}; frames mean "
+            f"{float(frames.mean()):.3f}")
+        all_counts[name] = counts
+        del pipe, fn, state
+        if on_card:
+            torch.cuda.empty_cache()
+    return all_counts
+
+
+def routed_vs_posed(size: int = SIZE, device: str = "cuda"):
+    """(h) the ``'routed'`` frame loop (``apply_shift`` in PyTorch, then
+    ``render_grids_fast``) against the posed one, same models and image.
+
+    From one front-end state the two loops may differ only where float
+    atomics reorder a sum: mean SSIM >= 0.999. As whole effects they also
+    carry the front end's own run-to-run spread (the bootstrap's atomics
+    feed bf16 nets), which a second ``'auto'`` run shows beside them; that
+    comparison is held to the fidelity bar of 0.99. Both loops are timed in
+    turns on the shared state."""
+    import numpy as np
+    import torch
+    from kbe_torch.config import EffectConfig, ZoomSettings
+    from kbe_torch.data import demo_scene_image
+    from kbe_torch.ops.image_ops import ssim
+    from kbe_torch.pipeline.kenburns import build_effect_fn, create_models
+
+    on_card = device == "cuda"
+    models = create_models(0, device, torch.bfloat16, torch.float32)
+    image = torch.as_tensor(demo_scene_image(size, size), device=device)[None]
+    zoom = ZoomSettings.default_3d(size, size)
+    fns = {method: build_effect_fn(size, size, zoom, effect=EffectConfig(
+        num_steps=MODE_STEPS, splat_method=method), device=device)
+        for method in ("auto", "routed")}
+
+    def compare(label, a, b, floor):
+        a, b = a.float() / 255.0, b.float() / 255.0
+        mean = float(np.mean([float(ssim(a[i:i + 1], b[i:i + 1]))
+                              for i in range(MODE_STEPS)]))
+        diff = (a - b).abs() * 255.0
+        log(f"(h) {label} at {size}^2, {MODE_STEPS} steps: mean SSIM "
+            f"{mean:.6f}, max abs diff {float(diff.max()):.0f} of 255, "
+            f"pixels differing {float((diff > 0).float().mean()):.6f}")
+        if mean < floor:
+            raise AssertionError(f"(h) {label}: mean SSIM {mean} < {floor}")
+
+    state = fns["auto"].front_end(models, image)
+    compare("routed vs posed loop, one front-end state",
+            fns["routed"].render_frames(state),
+            fns["auto"].render_frames(state), 0.999)
+    whole = {m: fn(models, image) for m, fn in fns.items()}
+    compare("routed vs posed, whole effects", whole["routed"], whole["auto"],
+            0.99)
+    compare("posed vs posed again, whole effects",
+            fns["auto"](models, image), whole["auto"], 0.99)
+
+    times = {"auto": [], "routed": []}
+    for method in ("auto", "routed", "routed", "auto") * 3:
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns[method].render_frames(state)
+        if on_card:
+            torch.cuda.synchronize()
+        times[method].append((time.perf_counter() - t0) / MODE_STEPS * 1e3)
+    log(f"(h) pose loop ms/frame on the shared state, in turns: posed "
+        f"{[round(t, 3) for t in times['auto']]}, routed "
+        f"{[round(t, 3) for t in times['routed']]}")
+
+
+def autozoom_phase(size: int = SIZE, small: int = 256, grid: int = 16,
+                   device: str = "cuda"):
+    """(i) ``load_scene`` then ``autozoom`` on the card; the card's choice
+    against the CPU's plain route on the same cloud at ``small``^2."""
+    import numpy as np
+    import torch
+    from kbe_torch.config import ZoomWindow
+    from kbe_torch.data import demo_scene_image
+    from kbe_torch.pipeline import autozoom, load_scene
+    from kbe_torch.pipeline.kenburns import create_models
+
+    on_card = device == "cuda"
+    models = create_models(0, device)
+
+    def scene_of(n):
+        image = (demo_scene_image(n, n) * 255.0).astype(np.uint8)
+        return load_scene(models, image, device=device)
+
+    scene = scene_of(size)
+    window = ZoomWindow(size / 2.0, size / 2.0, size * 7 // 8, size * 7 // 8)
+    clear_launches()
+    t0 = time.perf_counter()
+    chosen = autozoom(scene["unaltered_points"], scene["image"], window,
+                      1.25, size / 10.0, scene["anchor"], scene["camera"],
+                      grid=grid)
+    wall = time.perf_counter() - t0
+    if on_card:
+        expect_counts("(i) autozoom", splat_counts(3, grid * grid))
+    log(f"(i) autozoom at {size}^2, {grid * grid} candidates: window "
+        f"{chosen} in {wall:.4f} s, {grid * grid} x 3 launches")
+
+    scene = scene_of(small)
+    window = ZoomWindow(small / 2.0, small / 2.0, small * 7 // 8,
+                        small * 7 // 8)
+    picks = []
+    for dev in (device, "cpu"):
+        picks.append(autozoom(
+            scene["unaltered_points"].to(dev), scene["image"].to(dev),
+            window, 1.25, small / 10.0,
+            tuple(a.to(dev) for a in scene["anchor"]), scene["camera"],
+            grid=4))
+    log(f"(i) autozoom at {small}^2, 16 candidates: card {picks[0]}, CPU "
+        f"{picks[1]}")
+    if picks[0] != picks[1]:
+        raise AssertionError("(i) autozoom: the card and the CPU chose "
+                             "different windows")
+
+
+def cli_phase(size: int = 256, device: str = "cuda"):
+    """(j) the CLI's ``run``: everything between reading the image and
+    writing the video, on the demo image."""
+    import numpy as np
+    from cli import kbe_torch as cli
+    from kbe_torch.data import demo_scene_image
+
+    image = (demo_scene_image(size, size) * 255.0).astype(np.uint8)
+    for argv in ([], ["--dolly"]):
+        args = cli.build_parser().parse_args(
+            argv + ["--steps", "5", "--device", device])
+        t0 = time.perf_counter()
+        frames = cli.run(args, image)
+        wall = time.perf_counter() - t0
+        if frames.shape != (5, size, size, 3) or frames.dtype != np.uint8:
+            raise AssertionError(f"(j) cli {argv}: frames {frames.shape} "
+                                 f"{frames.dtype}")
+        if int(frames.max()) == int(frames.min()) \
+                or not (frames[0] != frames[-1]).any():
+            raise AssertionError(f"(j) cli {argv}: frames do not move")
+        log(f"(j) cli run {argv or ['defaults']} at {size}^2, 5 steps: "
+            f"{wall:.4f} s, frames mean {float(frames.mean()):.3f}")
+
+
 def main() -> int:
     try:
         import torch
@@ -406,9 +803,28 @@ def main() -> int:
     log(f"tf32 after the effect: cudnn {torch.backends.cudnn.allow_tf32}, "
         f"matmul {torch.backends.cuda.matmul.allow_tf32}")
     card_vs_cpu()
-
     for row in rows:
         row["launches"] = counts.get(row.pop("count_key"), 0)
+        row["path"] = f"main path: {SIZE}^2 x {STEPS} frames, default effect"
+
+    # the entry points and modes off the main path: a row's launches are
+    # those of its own path's run, with its main-path count (0) beside them
+    more = []
+    grid_renderer_phases(more)
+    fill_variant_phase(more)
+    mode_counts = mode_phases()
+    routed_vs_posed()
+    autozoom_phase()
+    cli_phase()
+    for row in more:
+        row.pop("count_key")
+        if "mode" in row:
+            mode = row["mode"]
+            row["launches"] = mode_counts[mode]["discfill"]
+            row["path"] = (f"mode {mode}: {SIZE}^2 x {MODE_STEPS} frames "
+                           "through KenBurnsPipeline.__call__")
+        row["main_path_launches"] = 0
+    rows += more
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,10 @@ Here they are explicit, hashable config objects.
 A field-for-field copy of ``kbe_tpu/config.py``: the port imports nothing of
 the JAX package. The TPU schedule knobs of ``EffectConfig``
 (``fill_march_phase1``, ``fill_phase0``, ``fill_phase0_gate``,
-``splat_overflow_chunks``, ``splat_fallback``, ``max_pallas_margin``) do not
-change the function the effect computes, and ``kbe_torch`` ignores them.
+``splat_overflow_chunks``, ``splat_fallback``) do not change the function
+the effect computes: ``kbe_torch`` checks them and hands them to the entry
+points that ``kbe_tpu`` hands them to, where they select nothing.
+``max_pallas_margin`` still refuses the moves it refuses in ``kbe_tpu``.
 """
 
 from __future__ import annotations

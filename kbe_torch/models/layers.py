@@ -139,6 +139,7 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
                 fan_in = m.weight[0].numel()
                 w = torch.randn(m.weight.shape, generator=generator)
                 m.weight.copy_(w / fan_in ** 0.5)
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
             elif isinstance(m, nn.PReLU):
                 m.weight.fill_(0.25)

@@ -2,9 +2,8 @@
 
 Super-resolves the quarter-resolution disparity to full resolution with
 image-feature skips, inside a per-sample normalisation of both inputs and
-the output. ``residual_basics=True`` is the layout of the released
-checkpoint (``RefinePretrained`` in the JAX package); the effect does not
-use it yet.
+the output. ``RefinePretrained`` is the layout of the released checkpoint:
+the same topology with residual shortcuts in its Basic blocks.
 """
 
 from __future__ import annotations
@@ -50,9 +49,18 @@ class Refine(nn.Module):
     """``image`` (B, H, W, 3), ``disparity`` (B, H/4, W/4, 1) ->
     (B, H, W, 1) f32. Submodules live under ``core`` as in the Flax tree."""
 
-    def __init__(self, residual_basics: bool = False):
+    residual_basics = False
+
+    def __init__(self):
         super().__init__()
-        self.core = _RefineCore(residual_basics)
+        self.core = _RefineCore(self.residual_basics)
 
     def forward(self, image, disparity):
         return self.core(image, disparity)
+
+
+class RefinePretrained(Refine):
+    """The released checkpoint's refinement net: residual Basic blocks, with
+    a 1x1 ``shortcut`` conv wherever a block changes the channel count."""
+
+    residual_basics = True

@@ -14,6 +14,12 @@ endpoint distance wins, and the pixel copies all channels of the endpoint
 with the larger depth. ``steps`` bounds the march. The kernel is
 bit-identical to the plain version.
 
+``fill_disocclusion_pallas`` is the entry point of the TPU package's other
+fill kernels (``discfill_pallas.py::_build_kernel``, ``_build_fused_kernel``):
+the same fill under another schedule, so the same ``discfill`` kernel.
+``resolve_thin_holes``, the TPU package's XLA pre-pass, has no counterpart:
+it only saved march work for the TPU's kernel.
+
 ``roi`` = (y0, y1, x0, x1): holes outside it are left untouched; inside it
 the result equals the full fill, because the march reads the whole image.
 """
@@ -188,3 +194,43 @@ def fill_disocclusion(image: torch.Tensor, depth: torch.Tensor,
     fn = fill_cuda if image.is_cuda else fill_plain
     return torch.stack([fn(image[b].contiguous(), depth[b].contiguous(),
                            steps, roi) for b in range(image.shape[0])])
+
+
+def _checked_int(name: str, value, low: int) -> int:
+    if isinstance(value, bool) or not isinstance(value, int) or value < low:
+        raise ValueError(f"{name} must be an int >= {low}, got {value!r}")
+    return value
+
+
+def fill_disocclusion_pallas(image: torch.Tensor, depth: torch.Tensor,
+                             steps: int = 128, phase1_steps: int = 0,
+                             roi: Optional[Tuple[int, int, int, int]] = None,
+                             phase0_steps: int = 0,
+                             phase0_gate: float = 0.0) -> torch.Tensor:
+    """The surface of ``kbe_tpu/ops/discfill_pallas.py::
+    fill_disocclusion_pallas``: ``image`` (B, H, W, C), ``depth``
+    (B, H, W, 1) -> (B, H, W, C).
+
+    The TPU package splits the march into phases to save work on its
+    sequential grid: a thin-hole resolver of radius ``phase0_steps`` behind
+    a census gate ``phase0_gate``, a short fused march of ``phase1_steps``
+    that flags unresolved tiles, and an exact re-march of those tiles; with
+    ``phase1_steps <= 0`` it runs the one-phase kernel (``_build_kernel``,
+    ``_build_fused_kernel``). It states every schedule to be bit-identical
+    to the one-phase march, and so is this function: every setting runs the
+    one ``discfill`` kernel, where each hole pixel's thread already stops at
+    its ray's first event. The phase arguments are checked for type and
+    range and then unused."""
+    _checked_int("steps", steps, 0)
+    _checked_int("phase1_steps", phase1_steps, 0)
+    _checked_int("phase0_steps", phase0_steps, 0)
+    if isinstance(phase0_gate, bool) or not isinstance(
+            phase0_gate, (int, float)) or not 0.0 <= phase0_gate <= 1.0:
+        raise ValueError(f"phase0_gate must be a number in [0, 1], got "
+                         f"{phase0_gate!r}")
+    if roi is not None:
+        y0, y1, x0, x1 = (_checked_int("roi", v, 0) for v in roi)
+        if y0 > y1 or x0 > x1:
+            raise ValueError(f"roi {roi!r} is not (y0, y1, x0, x1) with "
+                             "y0 <= y1 and x0 <= x1")
+    return fill_disocclusion(image, depth, steps, roi)

@@ -95,7 +95,7 @@ def solve_shift(shift_u, shift_v, depth_from, depth_to, closest_depth,
                 closest_u, closest_v, width: int, height: int,
                 focal) -> torch.Tensor:
     """Screen-space shift of the anchor pixel -> metric camera translation
-    (3,) f32 (reference process_shift)."""
+    (3,) f32 (reference process_shift); (T,) shifts or depths give (T, 3)."""
     closest = closest_depth + (depth_to - depth_from)
     to_u = closest_u + shift_u
     to_v = closest_v + shift_v
@@ -104,15 +104,16 @@ def solve_shift(shift_u, shift_v, depth_from, depth_to, closest_depth,
     to_x = true_div((to_u - (width / 2.0)) * closest, focal)
     to_y = true_div((to_v - (height / 2.0)) * closest, focal)
     dz = depth_to - depth_from
-    return torch.stack([torch.as_tensor(v, dtype=torch.float32)
-                        for v in (from_x - to_x, from_y - to_y, dz)], dim=-1)
+    parts = [torch.as_tensor(v, dtype=torch.float32)
+             for v in (from_x - to_x, from_y - to_y, dz)]
+    return torch.stack(torch.broadcast_tensors(*parts), dim=-1)
 
 
 def apply_shift(xyz: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     """``xyz * [z/(z+1e-7), z/(z+1e-7), 1] + shift`` (the reference's
     perspective rescale, kept for exactness)."""
     z = xyz[..., 2:3]
-    scale = z / (z + 1e-7)
+    scale = true_div(z, z + 1e-7)
     scaled = torch.cat([xyz[..., 0:2] * scale, z], dim=-1)
     return scaled + shift
 

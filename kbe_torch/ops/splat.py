@@ -12,6 +12,10 @@ passes, each a kernel in ``csrc/splat.cu``:
   accumulate: each point adds w * payload and w to every in-image corner
               whose z-buffer it is within +1 of.
 
+``render_grids`` is the shared body of the grid-cloud entry points of
+``splat_routed``, ``splat_banded`` and ``legacy``: the TPU package has a
+kernel generation behind each, all computing this one function.
+
 The wrappers below take the plain path only for CPU tensors; a CUDA tensor
 launches the kernel or raises. Each wrapper counts its launches in
 ``LAUNCHES``, keyed ``"<pass>/c<C>"``.
@@ -36,7 +40,7 @@ import numpy as np
 import torch
 
 from kbe_torch.ops import _build
-from kbe_torch.ops.geometry import project_points, splat_error
+from kbe_torch.ops.geometry import project_points, splat_error, true_div
 
 _ZFAR = 1000000.0
 # the z-buffer's initial value: the order-preserving int encoding of 1e6
@@ -269,6 +273,51 @@ def render_pointcloud(xyz: torch.Tensor, data: torch.Tensor, height: int,
             torch.stack([o[1] for o in outs]))
 
 
+def render_grids(xyz: torch.Tensor, data: torch.Tensor, height: int,
+                 width: int, focal, baseline,
+                 valid: Optional[torch.Tensor] = None):
+    """Render stacked pixel-grid clouds whose shift is already applied: the
+    one body behind every ``render_grids_*`` entry point.
+
+    ``xyz`` (G, H, W, 3), ``data`` (G, H, W, C), ``valid`` (G, H, W) or None
+    -> (rendered (1, H, W, C), existing (1, H, W, 1)). The cloud is
+    flattened to contiguous f32 (N, 3), (N, C), (N,) and goes through
+    ``splat``: the three kernels for CUDA tensors."""
+    if xyz.ndim != 4 or xyz.shape[-1] != 3:
+        raise ValueError("expected xyz (G, H, W, 3)")
+    if data.ndim != 4 or data.shape[:3] != xyz.shape[:3]:
+        raise ValueError("expected data (G, H, W, C) on xyz's grid")
+    if valid is None:
+        valid = torch.ones(xyz.shape[:3], dtype=torch.float32,
+                           device=xyz.device)
+    elif valid.shape != xyz.shape[:3]:
+        raise ValueError("expected valid (G, H, W)")
+    c = data.shape[-1]
+    zero = torch.zeros(3, dtype=torch.float32, device=xyz.device)
+    rendered, existing = splat(
+        xyz.float().reshape(-1, 3).contiguous(),
+        data.float().reshape(-1, c).contiguous(),
+        valid.float().reshape(-1).contiguous(),
+        make_pose(zero, focal, baseline), height, width)
+    return rendered[None], existing[None]
+
+
+def check_fallback(fallback: str) -> None:
+    """The ``fallback`` argument of the ``render_grids_fast*`` entry points
+    chose what a TPU renderer did with points it could not route. These
+    kernels never drop a point, so both values give the same render; any
+    other value is a caller's mistake."""
+    if fallback not in ("clip", "scatter"):
+        raise ValueError(f"fallback must be 'clip' or 'scatter', got "
+                         f"{fallback!r}")
+
+
+def no_overflow(like: torch.Tensor) -> torch.Tensor:
+    """The overflow flag of the grid renderers: a constant false 0-d bool
+    tensor on ``like``'s device, because no point is ever dropped."""
+    return torch.zeros((), dtype=torch.bool, device=like.device)
+
+
 class PosedScene(NamedTuple):
     """Pose-invariant render state of a grid cloud, made once per video.
 
@@ -284,7 +333,7 @@ def prepare_scene(xyz: torch.Tensor, data: torch.Tensor,
                   valid: torch.Tensor) -> PosedScene:
     """``xyz`` (G, H, W, 3), ``data`` (G, H, W, C), ``valid`` (G, H, W)."""
     z = xyz[..., 2].float()
-    scale = z / (z + 1e-7)
+    scale = true_div(z, z + 1e-7)
     pts = torch.stack([xyz[..., 0].float() * scale,
                        xyz[..., 1].float() * scale, z], dim=-1)
     c = data.shape[-1]

@@ -1,31 +1,29 @@
 """The 3D Ken Burns effect, end to end. Port of
-``kbe_tpu/pipeline/kenburns.py`` on its default path.
+``kbe_tpu/pipeline/kenburns.py``.
 
 Stages, as in the JAX package:
-  1. depth: ``resize_to_max`` -> Semantics -> Disparity -> Refine ->
-     normalise -> depth -> points, and the ``depth_range`` anchor;
-  2. the inpainting bootstrap at steps 0 and 1, each appended to the cloud
-     as a pixel grid valid where the render left a hole (3 grids);
-  3. the pose loop: splat of the 3-grid cloud (payload rgb + depth) ->
-     disocclusion fill -> uint8 quantise -> sub-pixel crop -> resize.
+  1. depth: ``resize_to_max`` -> Semantics -> Disparity (replaced by ones
+     in 2D mode) -> Refine -> normalise -> depth -> points, and the
+     ``depth_range`` anchor;
+  2. the inpainting bootstrap at steps 0 and 1 (skipped for dolly), each
+     appended to the cloud as a pixel grid valid where the net reports no
+     coverage (3 grids);
+  3. the pose loop: splat of the cloud (payload rgb + depth) at each pose's
+     shift and focal -> disocclusion fill -> uint8 quantise -> sub-pixel
+     crop -> resize.
 
-On CUDA tensors the splat and the fill run the hand-written kernels of
-``kbe_torch/ops/csrc``; on CPU tensors their plain versions.
-
-Not supported yet (they raise ``NotImplementedError``): dolly, 2D,
-``pretrained_refine``, ``partial_inpainting`` and the dual-net
-inpaint-depth mode. The TPU schedule knobs of ``EffectConfig``
-(``splat_method``, ``splat_overflow_chunks``, ``splat_fallback``,
-``fill_impl``, ``fill_march_phase1``, ``fill_phase0``,
-``fill_phase0_gate``, ``max_pallas_margin``) do not change the function, so
-they are ignored: every ``splat_method`` is the one splat, every
-``fill_impl`` the one fill, and ``with_stats`` reports
-``splat_overflow_frames = 0`` because no point is ever dropped.
+``EffectConfig.splat_method`` and ``fill_impl`` select the entry point that
+the JAX package selects with them (see ``build_effect_fn``). On CUDA tensors
+every one of them runs the hand-written kernels of ``kbe_torch/ops/csrc``;
+on CPU tensors their plain versions. The kernels never drop a point, so
+``splat_overflow_chunks`` and ``splat_fallback`` have nothing to choose and
+``with_stats`` reports ``splat_overflow_frames = 0``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -33,63 +31,146 @@ import torch
 
 from kbe_torch.config import CameraConfig, EffectConfig, ZoomSettings
 from kbe_torch.device import disable_tf32, resolve_device
-from kbe_torch.models import ContextNet, Disparity, Inpaint, Refine, \
-    Semantics
+from kbe_torch.models import (ContextNet, Disparity, Inpaint, PartialInpaint,
+                              Refine, RefinePretrained, Semantics)
 from kbe_torch.models.layers import init_params
-from kbe_torch.ops.discfill import fill_disocclusion
-from kbe_torch.ops.geometry import (depth_range, depth_to_points,
-                                    disparity_to_depth, interpolate_window,
-                                    solve_shift, true_div)
+from kbe_torch.ops.discfill import fill_disocclusion, \
+    fill_disocclusion_pallas
+from kbe_torch.ops.geometry import (apply_shift, depth_range,
+                                    depth_to_points, disparity_to_depth,
+                                    interpolate_window, solve_shift,
+                                    true_div)
+from kbe_torch.ops.legacy import render_grids_fast_delta, \
+    render_grids_pallas
 from kbe_torch.ops.resize import crop_rect_subpix, resize_bilinear, \
     resize_to_max
-from kbe_torch.ops.splat import prepare_scene, render_posed
+from kbe_torch.ops.splat import prepare_scene, render_pointcloud, \
+    render_posed
+from kbe_torch.ops.splat_routed import render_grids_fast
 from kbe_torch.pipeline.inpaint_flow import InpaintModels, \
     pointcloud_inpainting
-from kbe_torch.utils.convert import state_dict_from_flax
+from kbe_torch.utils.convert import load_flax
+
+SPLAT_METHODS = ("auto", "banded", "routed", "scatter", "delta", "pallas")
+FILL_IMPLS = ("pallas", "xla")
+
+
+def displacement_margin(zoom: ZoomSettings, camera: CameraConfig,
+                        effect: EffectConfig, width: int,
+                        height: int) -> int:
+    """Static bound on any point's per-frame screen displacement (pixels).
+
+    The solved metric shift sx ~= shiftU * closest / focal projects to at
+    most shiftU (z >= closest); the z-shift adds |u| * sz/z <= (W/2) *
+    (1 - min crop ratio); inpaint-grid points carry an extra -overshoot *
+    endpoint shift; dolly focal interpolation rescales u by up to the crop
+    scaling. ``splat_method='pallas'`` is refused beyond
+    ``effect.max_pallas_margin``, as in the JAX package.
+    """
+    su = [zoom.src.center_u - width / 2.0, zoom.dst.center_u - width / 2.0]
+    sv = [zoom.src.center_v - height / 2.0,
+          zoom.dst.center_v - height / 2.0]
+    max_cw = max(zoom.src.crop_width, zoom.dst.crop_width)
+    dr = 1.0 - min(zoom.src.crop_width, zoom.dst.crop_width) / max_cw
+    over = (effect.inpaint_overshoot
+            if effect.inpaint and not effect.dolly else 0.0)
+    mx = max(abs(a - over * b) for a in su + [0.0] for b in su + [0.0])
+    my = max(abs(a - over * b) for a in sv + [0.0] for b in sv + [0.0])
+    scale_term = (max(width, height) / 2.0) * dr * (1.0 + over)
+    if effect.dolly:
+        # focal interpolation rescales all screen coords
+        scaling = zoom.dst.crop_width / zoom.src.crop_width
+        scale_term += (max(width, height) / 2.0) * abs(scaling - 1.0)
+    return int(math.ceil(max(mx, my) + scale_term)) + 6
+
+
+def _step_focal(step: float, zoom: ZoomSettings, camera: CameraConfig,
+                dolly: bool) -> float:
+    """Dolly focal interpolation f*(1-s) + s*f*(wTo/wFrom); constant
+    otherwise. Python float math: the caller rounds to f32 once."""
+    if not dolly:
+        return camera.focal
+    scaling = zoom.dst.crop_width / zoom.src.crop_width
+    return camera.focal * (1.0 - step) + step * camera.focal * scaling
 
 
 class PipelineModels(NamedTuple):
-    """The nets of the effect (the JAX package's ``PipelineParams``)."""
+    """The nets of the effect (the JAX package's ``PipelineParams``).
+    ``context_depth`` and ``inpaint_depth`` are the dual-net mode's second
+    pair; both or neither."""
 
     semantics: Semantics
     disparity: Disparity
     refine: Refine
     context: ContextNet
-    inpaint: Inpaint
+    inpaint: torch.nn.Module
+    context_depth: Optional[ContextNet] = None
+    inpaint_depth: Optional[torch.nn.Module] = None
+
+
+def _new_models(pretrained_refine: bool, partial_inpainting: bool,
+                inpaint_depth: bool) -> PipelineModels:
+    inpaint_cls = PartialInpaint if partial_inpainting else Inpaint
+    return PipelineModels(
+        Semantics(), Disparity(),
+        RefinePretrained() if pretrained_refine else Refine(),
+        ContextNet(), inpaint_cls(),
+        ContextNet() if inpaint_depth else None,
+        inpaint_cls() if inpaint_depth else None)
 
 
 def _place(models: PipelineModels, device, dtype,
            depth_dtype) -> PipelineModels:
     depth_dtype = dtype if depth_dtype is None else depth_dtype
-    kinds = (depth_dtype, depth_dtype, depth_dtype, dtype, dtype)
-    return PipelineModels(*(m.to(device=device, dtype=dt).eval()
-                            for m, dt in zip(models, kinds)))
+    kinds = (depth_dtype, depth_dtype, depth_dtype, dtype, dtype, dtype,
+             dtype)
+    return PipelineModels(*(
+        None if m is None else m.to(device=device, dtype=dt).eval()
+        for m, dt in zip(models, kinds)))
 
 
 def create_models(seed: int = 0, device=None, dtype=torch.float32,
-                  depth_dtype=None) -> PipelineModels:
+                  depth_dtype=None, pretrained_refine: bool = False,
+                  partial_inpainting: bool = False,
+                  inpaint_depth: bool = False) -> PipelineModels:
     """Full-width nets with seeded random weights (drawn on the CPU from
     one ``torch.Generator``), on ``device`` in the given compute types:
     ``dtype`` for context + inpaint, ``depth_dtype`` (default ``dtype``)
     for semantics, disparity and refine."""
     gen = torch.Generator().manual_seed(seed)
-    models = PipelineModels(Semantics(), Disparity(), Refine(), ContextNet(),
-                            Inpaint())
+    models = _new_models(pretrained_refine, partial_inpainting,
+                         inpaint_depth)
     for m in models:
-        init_params(m, gen)
+        if m is not None:
+            init_params(m, gen)
     return _place(models, resolve_device(device), dtype, depth_dtype)
 
 
 def models_from_flax(trees, device=None, dtype=torch.float32,
-                     depth_dtype=None) -> PipelineModels:
+                     depth_dtype=None, pretrained_refine: bool = False,
+                     partial_inpainting: bool = False,
+                     inpaint_depth: Optional[bool] = None) -> PipelineModels:
     """Nets loaded from Flax param trees: ``trees`` has the fields of
-    ``PipelineModels`` (a ``kbe_tpu`` ``PipelineParams`` as numpy)."""
-    models = PipelineModels(Semantics(), Disparity(), Refine(), ContextNet(),
-                            Inpaint())
+    ``PipelineModels`` (a ``kbe_tpu`` ``PipelineParams`` as numpy, or a
+    dict). ``inpaint_depth=None`` builds the second pair when the trees
+    hold one."""
+
+    def tree(name):
+        return (getattr(trees, name, None) if hasattr(trees, "_fields")
+                else trees.get(name))
+
+    if inpaint_depth is None:
+        inpaint_depth = tree("inpaint_depth") is not None
+    models = _new_models(pretrained_refine, partial_inpainting,
+                         inpaint_depth)
     for name, m in zip(PipelineModels._fields, models):
-        m.load_state_dict(state_dict_from_flax(getattr(trees, name)
-                                               if hasattr(trees, name)
-                                               else trees[name]))
+        if m is None:
+            continue
+        if tree(name) is None:
+            raise ValueError(f"no param tree for {name}" + (
+                ": inpaint_depth requires context_depth"
+                if name == "context_depth" else ""))
+        load_flax(m, tree(name))
     return _place(models, resolve_device(device), dtype, depth_dtype)
 
 
@@ -130,6 +211,17 @@ def fill_roi_of(height: int, width: int, zoom: ZoomSettings,
     return (ry0, ry1, rx0, rx1)
 
 
+class EffectState(NamedTuple):
+    """What the front end hands the pose loop. ``scene`` is the cloud with
+    x, y pre-scaled for the posed renderer; ``cloud_xyz`` (G, H, W, 3) is
+    the raw cloud that the other renderers shift themselves; ``poses``
+    (T, 5) = (shift, focal, focal * baseline) per step."""
+
+    scene: object
+    cloud_xyz: torch.Tensor
+    poses: torch.Tensor
+
+
 def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
                     camera: CameraConfig = CameraConfig(),
                     effect: EffectConfig = EffectConfig(),
@@ -142,9 +234,21 @@ def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
     ``image``: (1, H, W, 3) f32 in [0, 1] on ``device`` (default ``cuda``);
     returns (num_steps, H, W, 3) uint8 on that device, or ``(frames,
     stats)`` with ``with_stats``. The compute types are those of the
-    ``PipelineModels`` passed in. On CUDA, TF32 is turned off for cuDNN and
-    cuBLAS (``kbe_torch.device.disable_tf32``): the depth nets must run
-    true f32.
+    ``PipelineModels`` passed in; ``pretrained_refine`` and
+    ``partial_inpainting`` say which nets they must hold, and a mismatch
+    raises. On CUDA, TF32 is turned off for cuDNN and cuBLAS
+    (``kbe_torch.device.disable_tf32``): the depth nets must run true f32.
+
+    ``effect.splat_method`` picks the frame loop's renderer: ``'auto'`` and
+    ``'banded'`` the posed renderer (``render_posed``, the shift applied in
+    the kernel); ``'routed'`` ``apply_shift`` then ``render_grids_fast``;
+    ``'delta'`` and ``'pallas'`` the entry points of ``ops/legacy``;
+    ``'scatter'`` ``render_pointcloud``. The bootstrap renders through
+    ``'scatter'`` or ``'banded'`` when the frame loop does, else through
+    ``'routed'``. ``effect.fill_impl``: ``'pallas'`` is
+    ``fill_disocclusion_pallas`` inside the ROI, ``'xla'``
+    ``fill_disocclusion`` over the whole frame. Any other value raises
+    ``ValueError``.
 
     The returned function also carries its two halves: ``front_end(models,
     image) -> state`` (depth, bootstrap, cloud, poses) and
@@ -153,25 +257,60 @@ def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
     dev = resolve_device(device)
     if height % 4 or width % 4:
         raise ValueError("image dims must be multiples of 4 (kbe.py:108-114)")
-    for flag, name in ((effect.dolly, "dolly"), (effect.two_d, "2D"),
-                       (pretrained_refine, "pretrained_refine"),
-                       (partial_inpainting, "partial_inpainting")):
-        if flag:
-            raise NotImplementedError(f"kbe_torch does not support {name} "
-                                      "yet")
     zoom.validate(width, height)
+    splat = effect.splat_method
+    if splat not in SPLAT_METHODS:
+        raise ValueError(f"splat_method must be one of {SPLAT_METHODS}, got "
+                         f"{splat!r}")
+    if effect.fill_impl not in FILL_IMPLS:
+        raise ValueError(f"fill_impl must be one of {FILL_IMPLS}, got "
+                         f"{effect.fill_impl!r}")
+    if splat == "auto":
+        splat = "banded"
+    margin = displacement_margin(zoom, camera, effect, width, height)
+    if splat == "pallas" and margin > effect.max_pallas_margin:
+        raise ValueError(
+            f"trajectory displacement bound {margin}px exceeds "
+            f"max_pallas_margin={effect.max_pallas_margin}; use "
+            "splat_method='routed'")
+    bootstrap_splat = splat if splat in ("scatter", "banded") else "routed"
     if dev.type == "cuda":
         disable_tf32()
 
-    steps = np.linspace(0.0, 1.0, effect.num_steps).astype(np.float32)
+    steps = np.linspace(0.0, 1.0, effect.num_steps)
+    focals = np.array([_step_focal(s, zoom, camera, effect.dolly)
+                       for s in steps], np.float32)
     max_cw = max(zoom.src.crop_width, zoom.dst.crop_width)
     max_ch = max(zoom.src.crop_height, zoom.dst.crop_height)
     roi = fill_roi_of(height, width, zoom, effect)
 
+    def check_models(models: PipelineModels) -> None:
+        if isinstance(models.refine, RefinePretrained) != pretrained_refine:
+            raise ValueError("pretrained_refine does not match the refine "
+                             f"net given ({type(models.refine).__name__})")
+        if isinstance(models.inpaint, PartialInpaint) != partial_inpainting:
+            raise ValueError("partial_inpainting does not match the inpaint "
+                             f"net given ({type(models.inpaint).__name__})")
+        if models.inpaint_depth is not None and models.context_depth is None:
+            raise ValueError("inpaint_depth requires context_depth")
+
+    def net_apply(net):
+        if partial_inpainting:
+            return net
+
+        def apply(data, masks):
+            return net(data, masks) + (masks,)
+
+        return apply
+
     def front_end(models: PipelineModels, image: torch.Tensor):
+        check_models(models)
         resized = resize_to_max(image, max(height, width) // 2)
         semantics = models.semantics(resized)
         disp_half = models.disparity(resized, semantics)
+        if effect.two_d:
+            # 2D KBE: a flat scene
+            disp_half = torch.ones_like(disp_half)
         disparity = models.refine(image, disp_half).float()
         disparity = disparity - torch.clamp(disparity.min(), max=0.0)
         disparity = disparity / disparity.max() * camera.baseline
@@ -182,40 +321,82 @@ def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
         grids_xyz = [points[0]]
         grids_data = [torch.cat([image[0], disparity[0], depth[0]], dim=-1)]
         grids_valid = [torch.ones((height, width), device=dev)]
-        if effect.inpaint:
-            flow = InpaintModels(context=models.context, net=models.inpaint)
+        if effect.inpaint and not effect.dolly:
+            flow = InpaintModels(
+                context=models.context, net=net_apply(models.inpaint),
+                depth_net=(net_apply(models.inpaint_depth)
+                           if models.inpaint_depth is not None else None),
+                context_depth=models.context_depth)
             for s in (0.0, 1.0):
                 shift = compute_pose_shift(s, camera.focal, anchor, zoom,
                                            camera, width, height)
                 inp = pointcloud_inpainting(
                     flow, image, disparity, effect.inpaint_overshoot * shift,
-                    camera, camera.focal, effect.validity_threshold)
+                    camera, camera.focal, effect.validity_threshold,
+                    splat_method=bootstrap_splat)
                 grids_xyz.append(inp["points"].reshape(height, width, 3))
                 grids_data.append(torch.cat(
                     [inp["image"][0], inp["disparity"][0], inp["depth"][0]],
                     dim=-1))
                 grids_valid.append(
                     (inp["existing"][0, ..., 0] == 0.0).float())
+        cloud_xyz = torch.stack(grids_xyz)
         cloud_data = torch.stack(grids_data)
         frame_data = torch.cat([cloud_data[..., 0:3], cloud_data[..., 4:5]],
                                dim=-1)
-        scene = prepare_scene(torch.stack(grids_xyz), frame_data,
+        scene = prepare_scene(cloud_xyz, frame_data,
                               torch.stack(grids_valid))
 
-        steps_t = torch.as_tensor(steps, device=dev)
-        focals_t = torch.full_like(steps_t, camera.focal)
+        steps_t = torch.as_tensor(steps.astype(np.float32), device=dev)
+        focals_t = torch.as_tensor(focals, device=dev)
         shifts = compute_pose_shift(steps_t, focals_t, anchor, zoom, camera,
                                     width, height)
         poses = torch.cat([shifts, focals_t[:, None],
                            (focals_t * camera.baseline)[:, None]],
                           dim=1).contiguous()
-        return scene, poses
+        return EffectState(scene, cloud_xyz, poses)
 
-    def render_frame(scene, pose: torch.Tensor) -> torch.Tensor:
-        render, weight = render_posed(scene, pose, height, width)
+    def splat_frame(state: EffectState, pose: torch.Tensor):
+        """One pose's (render (H, W, 4), weight (H, W, 1))."""
+        scene = state.scene
+        if splat == "banded":
+            return render_posed(scene, pose, height, width)
+        xyz = apply_shift(state.cloud_xyz, pose[:3])
+        g = xyz.shape[0]
+        data = scene.payload.reshape(g, height, width, -1)
+        valid = scene.valid.reshape(g, height, width)
+        focal = pose[3]
+        if splat == "routed":
+            render, weight = render_grids_fast(
+                xyz, data, height, width, focal, camera.baseline,
+                valid=valid, fallback=effect.splat_fallback)
+        elif splat == "delta":
+            render, weight = render_grids_fast_delta(
+                xyz, data, height, width, focal, camera.baseline,
+                valid=valid, fallback=effect.splat_fallback)
+        elif splat == "pallas":
+            render, weight = render_grids_pallas(
+                xyz, data, height, width, focal, camera.baseline,
+                valid=valid, margin=margin)
+        else:
+            render, weight = render_pointcloud(
+                xyz.reshape(1, -1, 3), data.reshape(1, -1, data.shape[-1]),
+                height, width, focal, camera.baseline,
+                valid=valid.reshape(1, -1))
+        return render[0], weight[0]
+
+    def render_frame(state: EffectState, pose: torch.Tensor) -> torch.Tensor:
+        render, weight = splat_frame(state, pose)
         render_depth = render[..., 3:4] * (weight > 0.0)
-        filled = fill_disocclusion(render[None], render_depth[None],
-                                   effect.fill_march_steps, roi)[0]
+        if effect.fill_impl == "xla":
+            filled = fill_disocclusion(render[None], render_depth[None],
+                                       effect.fill_march_steps)[0]
+        else:
+            filled = fill_disocclusion_pallas(
+                render[None], render_depth[None], effect.fill_march_steps,
+                phase1_steps=effect.fill_march_phase1, roi=roi,
+                phase0_steps=effect.fill_phase0,
+                phase0_gate=effect.fill_phase0_gate)[0]
         # quantise BEFORE the crop, round after the crop and the resize,
         # as the reference's uint8 cv2 chain does
         rgb = torch.floor(torch.clamp(filled[..., 0:3] * 255.0, 0.0, 255.0))
@@ -225,12 +406,11 @@ def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
         out = resize_bilinear(patch[None], height, width)[0]
         return torch.clamp(torch.round(out), 0.0, 255.0).to(torch.uint8)
 
-    def render_frames(state) -> torch.Tensor:
-        scene, poses = state
+    def render_frames(state: EffectState) -> torch.Tensor:
         # poses are independent; they run one after another only to bound
         # the memory of the intermediate planes
-        return torch.stack([render_frame(scene, poses[i])
-                            for i in range(poses.shape[0])])
+        return torch.stack([render_frame(state, state.poses[i])
+                            for i in range(state.poses.shape[0])])
 
     @torch.inference_mode()
     def effect_fn(models: PipelineModels, image: torch.Tensor):
@@ -252,6 +432,8 @@ class KenBurnsPipeline:
     effect: EffectConfig
     models: PipelineModels
     device: torch.device
+    pretrained_refine: bool = False
+    partial_inpainting: bool = False
     _cache: dict = dataclasses.field(default_factory=dict)
 
     @staticmethod
@@ -266,24 +448,25 @@ class KenBurnsPipeline:
         """Seeded random nets on ``device`` (default ``cuda``; raises where
         there is no GPU unless ``device="cpu"``). The production mix is
         ``dtype=torch.bfloat16, depth_dtype=torch.float32``. For other
-        weights, build the dataclass with ``models_from_flax``."""
+        weights, build the dataclass with ``models_from_flax``, or load
+        reference checkpoints with
+        ``kbe_torch.utils.reference_convert.load_torch_pipeline``."""
         dev = resolve_device(device)
-        for flag, name in ((pretrained_refine, "pretrained_refine"),
-                           (partial_inpainting, "partial_inpainting"),
-                           (inpaint_depth, "inpaint_depth")):
-            if flag:
-                raise NotImplementedError(
-                    f"kbe_torch does not support {name} yet")
         return KenBurnsPipeline(
             camera=camera, effect=effect,
-            models=create_models(seed, dev, dtype, depth_dtype), device=dev)
+            models=create_models(seed, dev, dtype, depth_dtype,
+                                 pretrained_refine, partial_inpainting,
+                                 inpaint_depth),
+            device=dev, pretrained_refine=pretrained_refine,
+            partial_inpainting=partial_inpainting)
 
     def effect_fn(self, height: int, width: int,
                   zoom: ZoomSettings) -> Callable:
-        key = (height, width, zoom)
+        key = (height, width, zoom, self.effect, self.camera)
         if key not in self._cache:
             self._cache[key] = build_effect_fn(
                 height, width, zoom, self.camera, self.effect,
+                self.pretrained_refine, self.partial_inpainting,
                 device=self.device)
         return self._cache[key]
 

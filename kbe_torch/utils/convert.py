@@ -8,6 +8,12 @@ own module names, which mirror the Flax tree: a module path
   ``bias``                      -> ``bias``
   ``slope`` (PReLU)             -> ``weight``
 
+A leaf may sit beside submodules: ``PartialConv`` keeps its ``bias`` next to
+its bias-free ``conv`` (``conv1/conv/kernel``, ``conv1/bias``), and
+``RefinePretrained``'s blocks carry a ``shortcut`` conv; both map by the
+same rules, because the port's modules name their attributes as the Flax
+tree does.
+
 The tree is nested dicts of numpy arrays (``jax.device_get`` of a Flax
 ``params`` collection, or an orbax restore); a top-level ``{"params": ...}``
 wrapper is unwrapped.
@@ -48,3 +54,10 @@ def state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(tree, "")
     return out
+
+
+def load_flax(module: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
+    """Load a Flax param tree into its ``kbe_torch`` counterpart, strictly:
+    a missing or unexpected entry raises."""
+    module.load_state_dict(state_dict_from_flax(tree))
+    return module

@@ -61,3 +61,96 @@ def test_fill_kernel_bit_identical(cuda, roi):
     for steps in (16, 128):
         got = D.fill_cuda(image, depth, steps, roi)
         assert torch.equal(got, D.fill_plain(image, depth, steps, roi))
+
+
+def _grids(h, w, grids, c, seed):
+    """A (G, H, W) grid cloud on the CPU: shifted planes with a near box,
+    later grids valid on a random half."""
+    from kbe_torch.ops.geometry import apply_shift
+
+    g = torch.Generator().manual_seed(seed)
+    xyz, valid = [], []
+    for i in range(grids):
+        depth = (100.0 + 10.0 * i) + 50.0 * torch.rand(h, w, generator=g)
+        depth[h // 4:h // 2, w // 4:w // 2] = 20.0 + i
+        xyz.append(depth_to_points(depth, 128.0))
+        valid.append(torch.ones(h, w) if i == 0
+                     else (torch.rand(h, w, generator=g) > 0.5).float())
+    xyz = apply_shift(torch.stack(xyz), torch.tensor([3.5, -2.0, -10.0]))
+    return xyz, torch.rand(grids, h, w, c, generator=g), torch.stack(valid)
+
+
+def _entry_points():
+    from kbe_torch.ops import legacy, splat_banded, splat_routed
+
+    return {"routed": splat_routed.render_grids_routed,
+            "fast": splat_routed.render_grids_fast,
+            "banded": splat_banded.render_grids_banded,
+            "fast_banded": splat_banded.render_grids_fast_banded,
+            "delta": legacy.render_grids_delta,
+            "fast_delta": legacy.render_grids_fast_delta,
+            "pallas": legacy.render_grids_pallas}
+
+
+@pytest.mark.parametrize("name", ["routed", "fast", "banded", "fast_banded",
+                                  "delta", "fast_delta", "pallas"])
+@pytest.mark.parametrize("grids,c", [(3, 4), (1, 68)])
+def test_grid_entry_point_runs_the_kernels(cuda, name, grids, c):
+    """Each ``render_grids_*`` on CUDA tensors against its own plain route
+    (the same call on CPU tensors) at 256^2, and its three launches."""
+    h = w = 256
+    fn = _entry_points()[name]
+    xyz, data, valid = _grids(h, w, grids, c, seed=c + grids)
+    want = fn(xyz, data, h, w, 128.0, 60.0, valid=valid)
+    S.LAUNCHES.clear()
+    got = fn(xyz.to(cuda), data.to(cuda), h, w, 128.0, 60.0,
+             valid=valid.to(cuda))
+    assert dict(S.LAUNCHES) == {f"zee/c{c}": 1, f"degrid/c{c}": 1,
+                                f"accumulate/c{c}": 1}
+    assert len(got) == len(want)
+    for g, wnt in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g.cpu(), wnt, rtol=1e-5, atol=2e-4)
+    if len(got) == 3:
+        assert got[2].is_cuda and not bool(got[2])
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(steps=128), dict(steps=8, phase1_steps=8),
+    dict(steps=128, phase1_steps=8, phase0_steps=2, phase0_gate=0.75),
+    dict(steps=128, phase1_steps=0, roi=(10, 200, 20, 230))],
+    ids=["one_phase", "short", "three_phase", "roi"])
+def test_fill_pallas_entry_runs_the_kernel(cuda, kwargs):
+    g = torch.Generator().manual_seed(2)
+    image = torch.rand(1, 256, 256, 4, generator=g)
+    depth = torch.rand(1, 256, 256, 1, generator=g) * 50.0
+    depth[torch.rand(1, 256, 256, 1, generator=g) < 0.4] = 0.0
+    depth[:, 60:90, 40:200] = 0.0
+    want = D.fill_disocclusion_pallas(image, depth, **kwargs)
+    D.LAUNCHES.clear()
+    got = D.fill_disocclusion_pallas(image.to(cuda), depth.to(cuda),
+                                     **kwargs)
+    assert dict(D.LAUNCHES) == {"discfill": 1}
+    assert torch.equal(got.cpu(), want)
+
+
+def test_autozoom_on_the_card_picks_the_cpu_window(cuda):
+    from kbe_torch.config import CameraConfig, ZoomWindow
+    from kbe_torch.ops.geometry import depth_range
+    from kbe_torch.pipeline import autozoom
+
+    h = w = 256
+    g = torch.Generator().manual_seed(3)
+    depth = 160.0 + 20.0 * torch.rand(h, w, generator=g)
+    depth[64:160, 64:160] = 80.0
+    cam = CameraConfig(focal=256.0, baseline=40.0)
+    points = depth_to_points(depth[None], cam.focal).reshape(1, -1, 3)
+    image = torch.rand(1, h, w, 3, generator=g)
+    window = ZoomWindow(128.0, 128.0, 224, 224)
+    want = autozoom(points, image, window, 1.25, 24.0,
+                    depth_range(depth, 32), cam, grid=4)
+    S.LAUNCHES.clear()
+    got = autozoom(points.to(cuda), image.to(cuda), window, 1.25, 24.0,
+                   depth_range(depth.to(cuda), 32), cam, grid=4)
+    assert dict(S.LAUNCHES) == {"zee/c3": 16, "degrid/c3": 16,
+                                "accumulate/c3": 16}
+    assert got == want

@@ -15,7 +15,13 @@ from kbe_torch.ops import splat as S
 
 def test_port_imports_no_jax_and_no_kbe_tpu():
     code = ("import sys, kbe_torch, kbe_torch.pipeline, kbe_torch.data, "
-            "kbe_torch.utils.convert, kbe_torch.ops.image_ops\n"
+            "kbe_torch.utils.convert, kbe_torch.ops.image_ops, "
+            "kbe_torch.pipeline.autozoom, kbe_torch.pipeline.scene, "
+            "kbe_torch.pipeline.video, kbe_torch.ops.splat_routed, "
+            "kbe_torch.ops.splat_banded, kbe_torch.ops.legacy, "
+            "kbe_torch.models.partial_conv, "
+            "kbe_torch.utils.reference_convert\n"
+            "import cli.kbe_torch\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'kbe_tpu'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -35,14 +41,41 @@ def test_default_device_raises_without_a_gpu(monkeypatch):
 
 
 def test_unsupported_effects_raise():
+    """What the port still refuses is what ``kbe_tpu`` refuses: an unknown
+    renderer or fill name, a ``'pallas'`` move beyond its margin, and an
+    image whose sides are not multiples of 4. No mode that ``kbe_tpu``
+    supports raises ``NotImplementedError``."""
     from kbe_torch.pipeline import build_effect_fn
 
     zoom = ZoomSettings.default_3d(64, 64)
-    for effect in (EffectConfig(dolly=True), EffectConfig(two_d=True)):
-        with pytest.raises(NotImplementedError):
+    for effect in (EffectConfig(splat_method="mosaic"),
+                   EffectConfig(fill_impl="cuda"),
+                   EffectConfig(splat_method="pallas", max_pallas_margin=4)):
+        with pytest.raises(ValueError):
             build_effect_fn(64, 64, zoom, effect=effect, device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_effect_fn(64, 64, zoom, pretrained_refine=True, device="cpu")
+    with pytest.raises(ValueError):
+        build_effect_fn(66, 64, zoom, device="cpu")
+
+
+@pytest.mark.parametrize("effect_kw,model_kw", [
+    ({"dolly": True}, {}),
+    ({"two_d": True}, {}),
+    ({}, {"pretrained_refine": True}),
+    ({}, {"partial_inpainting": True}),
+    ({}, {"inpaint_depth": True}),
+], ids=["dolly", "two_d", "pretrained_refine", "partial_inpainting",
+        "inpaint_depth"])
+def test_every_inference_mode_runs_on_the_cpu(effect_kw, model_kw):
+    """The modes that the first slice of the port refused."""
+    from kbe_torch.data import demo_scene_image
+    from kbe_torch.pipeline import KenBurnsPipeline
+
+    pipe = KenBurnsPipeline.create(
+        0, effect=EffectConfig(num_steps=2, **effect_kw), device="cpu",
+        **model_kw)
+    frames = pipe(demo_scene_image(32, 32))
+    assert frames.shape == (2, 32, 32, 3)
+    assert (frames[0] != frames[1]).any()
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -16,12 +16,16 @@ import torch
 
 from kbe_tpu.models import Disparity as DisparityJ
 from kbe_tpu.models import Inpaint as InpaintJ
+from kbe_tpu.models import PartialInpaint as PartialInpaintJ
 from kbe_tpu.models import Refine as RefineJ
+from kbe_tpu.models import RefinePretrained as RefinePretrainedJ
 from kbe_tpu.models import Semantics as SemanticsJ
 from kbe_tpu.models.gridnet import ContextNet as ContextNetJ
 from kbe_tpu.models.layers import sample_norm_stats as stats_j
-from kbe_torch.models import ContextNet, Disparity, Inpaint, Refine, \
-    Semantics
+from kbe_tpu.models.partial_conv import PartialConv as PartialConvJ
+from kbe_torch.models import (ContextNet, Disparity, Inpaint, PartialConv,
+                              PartialInpaint, Refine, RefinePretrained,
+                              Semantics)
 from kbe_torch.models.layers import ceil_max_pool, sample_norm_stats
 from kbe_torch.utils.convert import state_dict_from_flax
 
@@ -95,6 +99,74 @@ def test_refine_matches_flax():
         got = _port(Refine(), params)(torch.as_tensor(img),
                                       torch.as_tensor(disp))
     _close(got, want)
+
+
+def test_refine_pretrained_matches_flax():
+    """The released checkpoint's layout: residual Basic blocks, with a 1x1
+    ``shortcut`` conv where a block changes its channel count."""
+    img = _u(1, 32, 40, 3)
+    disp = _u(1, 8, 10, 1, seed=2, hi=50.0)
+    params = random_params(RefinePretrainedJ(), img, disp)
+    flat = state_dict_from_flax(params)
+    assert any(".shortcut." in k for k in flat)
+    want = RefinePretrainedJ().apply(params, img, disp)
+    with torch.no_grad():
+        got = _port(RefinePretrained(), params)(torch.as_tensor(img),
+                                                torch.as_tensor(disp))
+    _close(got, want)
+    # a flat disparity (the 2D mode's ones): the per-sample normalisation
+    # sees a zero deviation and must come back finite and equal
+    ones = np.ones_like(disp)
+    want = RefinePretrainedJ().apply(params, img, ones)
+    with torch.no_grad():
+        got = _port(RefinePretrained(), params)(torch.as_tensor(img),
+                                                torch.as_tensor(ones))
+    assert np.isfinite(np.asarray(want)).all()
+    _close(got, want)
+
+
+@pytest.mark.parametrize("kernel,stride,masked", [(3, 1, True), (3, 2, True),
+                                                  (1, 1, False)])
+def test_partial_conv_matches_flax(kernel, stride, masked):
+    """A random 0/1 mask with whole windows masked out (coverage 0) and
+    partly covered ones; ``masked=False`` is the shortcut's ``mask=None``.
+    The propagated masks must be equal, the outputs within tolerance."""
+    cin, cout = 6, 5
+    x = _u(1, 13, 18, cin, lo=-1.0)
+    mask = (_u(1, 13, 18, cin, seed=2) > 0.4).astype(np.float32)
+    mask[:, 3:9, 4:11] = 0.0
+    conv_j = PartialConvJ(cout, kernel=kernel, stride=stride)
+    params = random_params(conv_j, x, mask)
+    want, want_m = conv_j.apply(params, x, mask if masked else None)
+    assert set(params["params"]) == {"conv", "bias"}
+    port = _port(PartialConv(cin, cout, kernel=kernel, stride=stride), params)
+    with torch.no_grad():
+        got, got_m = port(
+            torch.as_tensor(x).permute(0, 3, 1, 2),
+            torch.as_tensor(mask).permute(0, 3, 1, 2) if masked else None)
+    got, got_m = got.permute(0, 2, 3, 1), got_m.permute(0, 2, 3, 1)
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+    if masked:
+        assert 0.0 < float(np.asarray(want_m).mean()) < 1.0
+    _close(got, want)
+
+
+@pytest.mark.parametrize("hw", [(32, 32), (36, 44)])
+def test_partial_inpaint_matches_flax(hw):
+    rows = (8, 12, 16, 20)
+    data = _u(1, *hw, 68, lo=-1.0)
+    mask = np.ones((1, *hw, 1), np.float32)
+    mask[:, 6:26, 10:28] = 0.0     # a hole wider than one conv can close
+    params = random_params(PartialInpaintJ(rows=rows), data, mask)
+    want = PartialInpaintJ(rows=rows).apply(params, data, mask)
+    with torch.no_grad():
+        got = _port(PartialInpaint(rows=rows), params)(
+            torch.as_tensor(data), torch.as_tensor(mask))
+    assert len(got) == len(want) == 3
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    assert got[2].shape == (1, *hw, 1)
+    for g, w in zip(got[:2], want[:2]):
+        _close(g, w)
 
 
 def test_context_net_matches_flax():

@@ -2,6 +2,7 @@
 """Where the time of kbe_torch's effect goes on the card.
 
     python tools/profile_torch_effect.py [--size 1024] [--steps 75]
+                                         [--mode default]
 
 Runs the 3D Ken Burns effect of ``kbe_torch`` (production precision mix:
 f32 depth nets, bf16 inpainting nets; seeded random weights; the demo
@@ -10,6 +11,8 @@ CUDA activities. Prints the wall time of the profiled run split into front
 end and pose loop (host clock around ``torch.cuda.synchronize``), the
 device time of the top kernels, and the device's busy and idle shares
 (busy = the union of kernel intervals on the device timeline).
+``--mode`` picks one of the inference modes that ``chip_smoke.py`` drives
+(dolly, 2d, partial_inpainting, routed+xla, ...), by the same table.
 """
 
 from __future__ import annotations
@@ -44,15 +47,25 @@ def main() -> int:
     ap.add_argument("--size", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=75)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--mode", default="default",
+                    help="'default' or a mode name of chip_smoke.MODES")
     args = ap.parse_args()
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from chip_smoke import MODES
     from kbe_torch.config import EffectConfig, ZoomSettings
     from kbe_torch.data import demo_scene_image
     from kbe_torch.pipeline import KenBurnsPipeline
+
+    modes = {"default": ({}, {})}
+    modes.update({name: (effect_kw, model_kw)
+                  for name, effect_kw, model_kw, _ in MODES})
+    if args.mode not in modes:
+        ap.error(f"--mode must be one of {sorted(modes)}")
+    effect_kw, model_kw = modes[args.mode]
 
     if not torch.cuda.is_available():
         print("profile_torch_effect: no CUDA device", file=sys.stderr)
@@ -61,11 +74,14 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     size = args.size
+    effect = EffectConfig(num_steps=args.steps, **effect_kw)
     pipe = KenBurnsPipeline.create(
-        seed=0, effect=EffectConfig(num_steps=args.steps),
-        dtype=torch.bfloat16, depth_dtype=torch.float32, device="cuda")
+        seed=0, effect=effect, dtype=torch.bfloat16,
+        depth_dtype=torch.float32, device="cuda", **model_kw)
     image = torch.as_tensor(demo_scene_image(size, size), device="cuda")[None]
-    fn = pipe.effect_fn(size, size, ZoomSettings.default_3d(size, size))
+    zoom = (ZoomSettings.default_dolly(size, size) if effect.dolly
+            else ZoomSettings.default_3d(size, size))
+    fn = pipe.effect_fn(size, size, zoom)
     fn(pipe.models, image)
     torch.cuda.synchronize()
 
@@ -81,7 +97,8 @@ def main() -> int:
     wall_us = (t2 - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = _busy_us(kernels)
-    print(f"{smi}; {size}^2 x {args.steps} frames; profiled run "
+    print(f"{smi}; mode {args.mode}; {size}^2 x {args.steps} frames; "
+          f"profiled run "
           f"{(t2 - t0) * 1e3:.3f} ms (front end {(t1 - t0) * 1e3:.3f} ms, "
           f"pose loop {(t2 - t1) * 1e3:.3f} ms); device busy "
           f"{busy / 1e3:.3f} ms = {busy / wall_us:.4f} of the wall time, "
