@@ -11,11 +11,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      (b) splat, C=68, one 1024^2 grid (the inpainting bootstrap);
      (c) fill at 1024^2, K=128, with and without the ROI (bit-identical);
      (d) two identical C=4 renders, their run-to-run difference;
+     (a2) splat, C=4, one grid at a pose with a focal of its own (dolly);
   4. main path: the 1024^2, 75-frame effect at the production precision mix
      (f32 depth nets, bf16 inpainting nets), seeded random weights; checks
      the frames and that every kernel ran (77 splats, 75 fills);
-  5. card vs CPU: the effect at 256^2, f32, 5 steps, same weights, mean
-     SSIM of the frames >= 0.99;
+  5. card vs CPU: the default effect, dolly and partial-conv inpainting at
+     256^2, f32, 5 steps, same weights, mean SSIM of the frames >= 0.99;
   6. the other entry points and inference modes:
      (e) every grid renderer (``render_grids_banded``, ``_routed`` at C=4
          and C=68, ``_pallas``, ``_delta``) on the card against the plain
@@ -28,12 +29,15 @@ Phases, in order; any failure raises and the script exits non-zero:
          through ``KenBurnsPipeline.__call__``: dolly, 2D, pretrained
          refine, partial conv, dual net, routed + whole-frame fill, delta,
          and the one-phase and fused fill schedules; frames and launch
-         counts checked;
+         counts checked, the pose loop timed several times;
      (h) the ``'routed'`` effect against the ``'auto'`` one, same models;
-     (i) ``load_scene`` and ``autozoom`` on the card (256 candidates), and
-         the card's choice against the CPU's at 256^2;
+     (i) ``load_scene`` and ``autozoom`` on the card (256 candidates), the
+         C=3 coverage renders of three candidates against the plain passes,
+         and the card's choice against the CPU's at 256^2;
      (j) the CLI's ``run`` at 256^2, defaults and ``--dolly``;
-  7. the ``{"kernels": [...]}`` line, then the device line last.
+  7. the ``{"kernels": [...]}`` line, then the device line last. A row's
+     ``launches`` are those of the run named in its ``path``, counted from
+     zero just before that run.
 
 Tolerances: the zee and degrid passes and the fill are exact (bit-equal to
 the plain version). The accumulation uses float atomics, whose order varies
@@ -54,6 +58,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SIZE = 1024
 STEPS = 75
 MODE_STEPS = 9              # depth of the other modes' runs
+LOOP_RUNS = 7               # timed pose loops per mode in (g)
 FOCAL, BASELINE = 512.0, 120.0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
@@ -181,17 +186,14 @@ def march_steps(depth, steps: int, roi) -> int:
     return total
 
 
-def splat_phase(label, xyz, payload, valid, pose, replaces, rows,
-                entry=None):
-    """Each splat kernel against its plain version on the same inputs.
-    ``replaces`` is one TPU kernel, or one per pass (zee, degrid,
-    accumulate); ``entry`` names the entry point in the rows of a renderer
-    off the main path, whose launch counts the caller fills in."""
+def splat_compare(label, xyz, payload, valid, pose, h: int, w: int):
+    """Each splat kernel against its plain version on the same inputs, and
+    the whole render through ``splat``. Returns the kernels' outputs and
+    the measured differences."""
     import torch
     from kbe_torch.ops import splat as S
 
     n, c = payload.shape
-    h = w = SIZE
     keys = S.zee_cuda(xyz, valid, pose, h, w, c)
     zee_p = S.zee_plain(xyz, valid, pose, h, w)
     zee_k = S.decode_keys(keys).reshape(h, w)
@@ -211,14 +213,34 @@ def splat_phase(label, xyz, payload, valid, pose, replaces, rows,
     r_p = S.accumulate_plain(xyz, valid, payload, pose, S.degrid_plain(
         S.zee_plain(xyz, valid, pose, h, w)), h, w)
     want_r = (r_p[:, :c] / (r_p[:, c:] + 1e-7)).reshape(h, w, c)
+    want_x = r_p[:, c:].reshape(h, w, 1)
     assert_close(f"{label} render", r_k, want_r)
-    assert_close(f"{label} existing", x_k, r_p[:, c:].reshape(h, w, 1))
-    e_render = max(max_err(r_k, want_r),
-                   max_err(x_k, r_p[:, c:].reshape(h, w, 1)))
-    holes = float((x_k == 0).float().mean())
+    assert_close(f"{label} existing", x_k, want_x)
+    covered, want_covered = int((x_k > 0).sum()), int((want_x > 0).sum())
+    if covered != want_covered:
+        raise AssertionError(f"{label}: {covered} covered pixels, the plain "
+                             f"render covers {want_covered}")
+    e_render = max(max_err(r_k, want_r), max_err(x_k, want_x))
     log(f"{label}: N={n} C={c} zee/degrid bit-equal, accumulate max diff "
         f"{e_acc:.3e}, render max diff {e_render:.3e} (held to rtol {RTOL},"
-        f" atol {ATOL}), hole share {holes:.4f}")
+        f" atol {ATOL}), {covered} covered pixels as the plain render, hole "
+        f"share {1.0 - covered / (h * w):.4f}")
+    return keys, zee_k, deg_k, r_k, x_k, (e_zee, e_deg, e_acc)
+
+
+def splat_phase(label, xyz, payload, valid, pose, replaces, rows,
+                entry=None, **extra):
+    """Each splat kernel against its plain version on the same inputs, then
+    timed. ``replaces`` is one TPU kernel, or one per pass (zee, degrid,
+    accumulate); ``entry`` names the entry point in the rows of a path off
+    the main one, whose launch counts the caller fills in; ``extra`` keys
+    go into each row."""
+    from kbe_torch.ops import splat as S
+
+    n, c = payload.shape
+    h = w = SIZE
+    keys, zee_k, deg_k, r_k, x_k, (e_zee, e_deg, e_acc) = splat_compare(
+        label, xyz, payload, valid, pose, h, w)
 
     reps, preps = 20, 3
     ms_zee = timed(lambda: S.zee_cuda(xyz, valid, pose, h, w, c), reps)
@@ -252,6 +274,7 @@ def splat_phase(label, xyz, payload, valid, pose, replaces, rows,
         if entry is not None:
             row["name"] += f"/{entry}"
             row["entry"] = entry
+        row.update(extra)
         rows.append(row)
     return r_k, x_k
 
@@ -263,12 +286,14 @@ def fill_phase(render, existing, roi, rows):
     depth = (render[..., 3:4] * (existing > 0.0)).contiguous()
     render = render.contiguous()
     h, w, c = render.shape
+    err = 0.0
     for r in (None, roi):
         got = D.fill_cuda(render, depth, 128, r)
         want = D.fill_plain(render, depth, 128, r)
+        err = max(err, max_err(got, want))
         if not torch.equal(got, want):
             raise AssertionError(f"fill roi={r}: not bit-identical, max abs "
-                                 f"diff {max_err(got, want)}")
+                                 f"diff {err}")
     holes = int((depth <= 0).sum())
     marched = march_steps(depth, 128, roi)
     ms = timed(lambda: D.fill_cuda(render, depth, 128, roi), 20)
@@ -281,11 +306,11 @@ def fill_phase(render, existing, roi, rows):
     b_ms, b_by = bound(h * w * (2 * c + 1) * 4, marched * 4)
     rows.append({"name": "discfill", "route": "cuda", "source": FILL_SRC,
                  "replaces": K2, "count_key": "discfill",
-                 "max_abs_err": 0.0, "ms": ms, "plain_ms": pms,
+                 "max_abs_err": err, "ms": ms, "plain_ms": pms,
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
 
 
-def kernel_phases(rows):
+def kernel_phases(rows, more):
     import torch
     from kbe_torch.ops import splat as S
     from kbe_torch.pipeline.kenburns import fill_roi_of
@@ -301,6 +326,14 @@ def kernel_phases(rows):
     render, existing = splat_phase("(a) splat C=4", scene.xyz,
                                    scene.payload, scene.valid, pose, K1,
                                    rows)
+    # (a2) the dolly loop's splat: one grid, no inpainted grids behind it,
+    # and a focal of the step's own in the pose
+    xyz1, payload1, valid1 = make_cloud(1, 4, seed=3, shift=shift.cpu())
+    scene1 = S.prepare_scene(xyz1, payload1, valid1)
+    splat_phase("(a2) splat C=4, one grid, dolly focal", scene1.xyz,
+                scene1.payload, scene1.valid,
+                S.make_pose(shift, FOCAL * 1.21875, BASELINE), K1, more,
+                entry="render_posed", mode="dolly")
     # (b) the bootstrap splat: one grid, 68 channels, unscaled points plus
     # the shift
     xyz68, payload68, _ = make_cloud(1, 68, seed=2, shift=shift.cpu())
@@ -382,29 +415,38 @@ def main_path():
 
 
 def card_vs_cpu():
+    """The card's frames against the CPU's plain path at 256^2, f32, 5
+    steps, same weights: the default effect, dolly (one grid, open holes,
+    a focal per step) and partial-conv inpainting."""
     import numpy as np
     import torch
-    from kbe_torch.config import EffectConfig, ZoomSettings
+    from kbe_torch.config import EffectConfig
     from kbe_torch.data import demo_scene_image
     from kbe_torch.ops.image_ops import ssim
     from kbe_torch.pipeline import KenBurnsPipeline
 
     size, steps = 256, 5
-    effect = EffectConfig(num_steps=steps)
     image = demo_scene_image(size, size)
-    out = {}
-    for dev in ("cuda", "cpu"):
-        pipe = KenBurnsPipeline.create(seed=0, effect=effect, device=dev)
-        out[dev] = torch.as_tensor(pipe(image)).float() / 255.0
-    scores = [float(ssim(out["cuda"][i:i + 1], out["cpu"][i:i + 1]))
-              for i in range(steps)]
-    diff = float((out["cuda"] - out["cpu"]).abs().max() * 255.0)
-    mean = float(np.mean(scores))
-    log(f"card vs CPU at {size}^2, f32, {steps} steps: mean SSIM "
-        f"{mean:.6f} (per frame {[round(s, 6) for s in scores]}), max abs "
-        f"diff {diff:.0f} of 255")
-    if mean < 0.99:
-        raise AssertionError(f"card vs CPU mean SSIM {mean} < 0.99")
+    for name, effect_kw, model_kw in (
+            ("default", {}, {}),
+            ("dolly", {"dolly": True}, {}),
+            ("partial_inpainting", {}, {"partial_inpainting": True})):
+        effect = EffectConfig(num_steps=steps, **effect_kw)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            pipe = KenBurnsPipeline.create(seed=0, effect=effect, device=dev,
+                                           **model_kw)
+            out[dev] = torch.as_tensor(pipe(image)).float() / 255.0
+        scores = [float(ssim(out["cuda"][i:i + 1], out["cpu"][i:i + 1]))
+                  for i in range(steps)]
+        diff = float((out["cuda"] - out["cpu"]).abs().max() * 255.0)
+        mean = float(np.mean(scores))
+        log(f"card vs CPU, {name}, at {size}^2, f32, {steps} steps: mean "
+            f"SSIM {mean:.6f} (per frame {[round(s, 6) for s in scores]}), "
+            f"max abs diff {diff:.0f} of 255")
+        if mean < 0.99:
+            raise AssertionError(f"card vs CPU, {name}: mean SSIM {mean} "
+                                 f"< 0.99")
 
 
 def launch_counts():
@@ -533,6 +575,7 @@ def fill_variant_phase(rows):
                     tried += 1
     h, w, c = render.shape
     marched = march_steps(depth, 128, roi)
+    want = D.fill_plain(render, depth, 128, roi)
     pms = timed(lambda: D.fill_plain(render, depth, 128, roi), 2)
     b_ms, b_by = bound(h * w * (2 * c + 1) * 4, marched * 4)
     for name, kwargs, replaces, mode in (
@@ -540,13 +583,20 @@ def fill_variant_phase(rows):
              "fill_march_phase1=0"),
             ("phase1_steps=8,phase0_steps=0", dict(phase1_steps=8),
              K6_FUSED, "fill_phase0=0")):
-        ms = timed(lambda: D.fill_disocclusion_pallas(
-            render[None], depth[None], 128, roi=roi, **kwargs), 20)
+        def call(kwargs=kwargs):
+            return D.fill_disocclusion_pallas(render[None], depth[None], 128,
+                                              roi=roi, **kwargs)
+
+        err = max_err(call()[0], want)
+        if err != 0.0:
+            raise AssertionError(f"(f) fill {name}: not bit-identical, max "
+                                 f"abs diff {err}")
+        ms = timed(call, 20)
         rows.append({"name": f"discfill/fill_disocclusion_pallas[{name}]",
                      "route": "cuda", "source": FILL_SRC,
                      "replaces": replaces, "count_key": "discfill",
                      "entry": "fill_disocclusion_pallas", "mode": mode,
-                     "max_abs_err": 0.0, "ms": ms, "plain_ms": pms,
+                     "max_abs_err": err, "ms": ms, "plain_ms": pms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None})
     ms_whole = timed(lambda: D.fill_disocclusion(render[None], depth[None],
@@ -619,15 +669,19 @@ def mode_phases(size: int = SIZE, device: str = "cuda"):
         state = fn.front_end(pipe.models, image)
         if on_card:
             torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        fn.render_frames(state)
-        if on_card:
-            torch.cuda.synchronize()
-        t2 = time.perf_counter()
+        front = time.perf_counter() - t0
+        loops = []
+        for _ in range(LOOP_RUNS):
+            t0 = time.perf_counter()
+            fn.render_frames(state)
+            if on_card:
+                torch.cuda.synchronize()
+            loops.append((time.perf_counter() - t0) / MODE_STEPS * 1e3)
         log(f"(g) mode {name}: {size}^2 x {MODE_STEPS} frames in {wall:.4f} s"
             f" through KenBurnsPipeline.__call__ (frames copied to the "
-            f"host); front end {t1 - t0:.4f} s, pose loop "
-            f"{(t2 - t1) / MODE_STEPS * 1e3:.3f} ms/frame; launches "
+            f"host); front end {front:.4f} s, pose loop ms/frame over "
+            f"{LOOP_RUNS} runs: median {float(np.median(loops)):.3f}, min "
+            f"{min(loops):.3f}, max {max(loops):.3f}; launches "
             f"{json.dumps(counts, sort_keys=True)}; frames mean "
             f"{float(frames.mean()):.3f}")
         all_counts[name] = counts
@@ -697,15 +751,20 @@ def routed_vs_posed(size: int = SIZE, device: str = "cuda"):
         f"{[round(t, 3) for t in times['routed']]}")
 
 
-def autozoom_phase(size: int = SIZE, small: int = 256, grid: int = 16,
+def autozoom_phase(rows, size: int = SIZE, small: int = 256, grid: int = 16,
                    device: str = "cuda"):
-    """(i) ``load_scene`` then ``autozoom`` on the card; the card's choice
-    against the CPU's plain route on the same cloud at ``small``^2."""
+    """(i) ``load_scene`` then ``autozoom`` on the card; on the card, the
+    coverage renders of a few candidates (C=3, one raw grid, the shift in
+    the pose) against the plain passes; the card's choice against the CPU's
+    plain route on the same cloud at ``small``^2. Returns the launch counts
+    of the search."""
     import numpy as np
     import torch
     from kbe_torch.config import ZoomWindow
     from kbe_torch.data import demo_scene_image
+    from kbe_torch.ops.splat import make_pose
     from kbe_torch.pipeline import autozoom, load_scene
+    from kbe_torch.pipeline.autozoom import candidate_shifts, flat_cloud
     from kbe_torch.pipeline.kenburns import create_models
 
     on_card = device == "cuda"
@@ -723,10 +782,30 @@ def autozoom_phase(size: int = SIZE, small: int = 256, grid: int = 16,
                       1.25, size / 10.0, scene["anchor"], scene["camera"],
                       grid=grid)
     wall = time.perf_counter() - t0
+    counts = launch_counts()
     if on_card:
         expect_counts("(i) autozoom", splat_counts(3, grid * grid))
     log(f"(i) autozoom at {size}^2, {grid * grid} candidates: window "
         f"{chosen} in {wall:.4f} s, {grid * grid} x 3 launches")
+
+    if on_card:
+        camera = scene["camera"]
+        su, sv, ok, cam_shifts = candidate_shifts(
+            window, 1.25, size / 10.0, scene["anchor"], size, size, camera,
+            grid, device)
+        xyz, payload, valid = flat_cloud(scene["unaltered_points"],
+                                         scene["image"])
+        best = int(np.argmin(
+            np.abs(su - (chosen.center_u - window.center_u))
+            + np.abs(sv - (chosen.center_v - window.center_v))))
+        inside = np.flatnonzero(ok)
+        for i in (int(inside[0]), int(inside[-1])):
+            splat_compare(f"(i) candidate {i}", xyz, payload, valid,
+                          make_pose(cam_shifts[i], camera.focal,
+                                    camera.baseline), size, size)
+        splat_phase(f"(i) chosen candidate {best}", xyz, payload, valid,
+                    make_pose(cam_shifts[best], camera.focal,
+                              camera.baseline), K1, rows, entry="autozoom")
 
     scene = scene_of(small)
     window = ZoomWindow(small / 2.0, small / 2.0, small * 7 // 8,
@@ -743,6 +822,7 @@ def autozoom_phase(size: int = SIZE, small: int = 256, grid: int = 16,
     if picks[0] != picks[1]:
         raise AssertionError("(i) autozoom: the card and the CPU chose "
                              "different windows")
+    return counts
 
 
 def cli_phase(size: int = 256, device: str = "cuda"):
@@ -797,8 +877,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    rows = []
-    kernel_phases(rows)
+    # rows of the main path's kernels, and of the paths off it: a row's
+    # launches are those of its own path's run
+    rows, more = [], []
+    kernel_phases(rows, more)
     counts = main_path()
     log(f"tf32 after the effect: cudnn {torch.backends.cudnn.allow_tf32}, "
         f"matmul {torch.backends.cuda.matmul.allow_tf32}")
@@ -807,23 +889,23 @@ def main() -> int:
         row["launches"] = counts.get(row.pop("count_key"), 0)
         row["path"] = f"main path: {SIZE}^2 x {STEPS} frames, default effect"
 
-    # the entry points and modes off the main path: a row's launches are
-    # those of its own path's run, with its main-path count (0) beside them
-    more = []
     grid_renderer_phases(more)
     fill_variant_phase(more)
     mode_counts = mode_phases()
     routed_vs_posed()
-    autozoom_phase()
+    autozoom_counts = autozoom_phase(more)
     cli_phase()
     for row in more:
-        row.pop("count_key")
+        key = row.pop("count_key")
         if "mode" in row:
             mode = row["mode"]
-            row["launches"] = mode_counts[mode]["discfill"]
+            row["launches"] = mode_counts[mode][key]
             row["path"] = (f"mode {mode}: {SIZE}^2 x {MODE_STEPS} frames "
                            "through KenBurnsPipeline.__call__")
-        row["main_path_launches"] = 0
+        elif row.get("entry") == "autozoom":
+            row["launches"] = autozoom_counts[key]
+            row["path"] = (f"autozoom: {SIZE}^2 points, "
+                           f"{autozoom_counts[key]} candidates")
     rows += more
     print(smi)
     print(json.dumps({"kernels": rows}))

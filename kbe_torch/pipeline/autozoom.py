@@ -21,6 +21,43 @@ from kbe_torch.ops.geometry import solve_shift
 from kbe_torch.ops.splat import make_pose, splat
 
 
+def candidate_shifts(window: ZoomWindow, zoom_factor: float,
+                     shift_range: float, anchor, height: int, width: int,
+                     camera: CameraConfig, grid: int, device):
+    """The lattice of candidates: ``(su, sv, ok, cam_shifts)``.
+
+    ``su``, ``sv`` (grid*grid,) f32 numpy pixel offsets of the window's
+    centre; ``ok`` (grid*grid,) numpy bool, false where the end window
+    would leave the image; ``cam_shifts`` (grid*grid, 3) f32 tensor on
+    ``device``, the camera shift that realises each candidate."""
+    crop_w = window.crop_width / zoom_factor
+    crop_h = window.crop_height / zoom_factor
+    dmin, du, dv = anchor
+    depth_to = dmin * (crop_w / window.crop_width)
+
+    shifts = np.linspace(-shift_range, shift_range, grid, dtype=np.float32)
+    su, sv = np.meshgrid(shifts, shifts, indexing="xy")
+    su, sv = su.reshape(-1), sv.reshape(-1)
+    ok = ((window.center_u + su >= crop_w / 2.0)
+          & (window.center_u + su <= width - crop_w / 2.0)
+          & (window.center_v + sv >= crop_h / 2.0)
+          & (window.center_v + sv <= height - crop_h / 2.0))
+    cam_shifts = solve_shift(torch.as_tensor(su, device=device),
+                             torch.as_tensor(sv, device=device), dmin,
+                             depth_to, dmin, du, dv, width, height,
+                             camera.focal)
+    return su, sv, ok, cam_shifts
+
+
+def flat_cloud(points: torch.Tensor, image: torch.Tensor):
+    """The raw cloud as the splat takes it: contiguous f32 ``(N, 3)``
+    points, ``(N, C)`` payload and an all-ones ``(N,)`` mask."""
+    xyz = points.reshape(-1, 3).float().contiguous()
+    payload = image.reshape(-1, image.shape[-1]).float().contiguous()
+    valid = torch.ones(xyz.shape[0], dtype=torch.float32, device=xyz.device)
+    return xyz, payload, valid
+
+
 @torch.inference_mode()
 def autozoom(points: torch.Tensor, image: torch.Tensor, window: ZoomWindow,
              zoom_factor: float, shift_range: float, anchor,
@@ -35,25 +72,9 @@ def autozoom(points: torch.Tensor, image: torch.Tensor, window: ZoomWindow,
     """
     h, w = image.shape[1], image.shape[2]
     dev = points.device
-    crop_w = window.crop_width / zoom_factor
-    crop_h = window.crop_height / zoom_factor
-    dmin, du, dv = anchor
-    depth_to = dmin * (crop_w / window.crop_width)
-
-    shifts = np.linspace(-shift_range, shift_range, grid, dtype=np.float32)
-    su, sv = np.meshgrid(shifts, shifts, indexing="xy")
-    su, sv = su.reshape(-1), sv.reshape(-1)
-    ok = ((window.center_u + su >= crop_w / 2.0)
-          & (window.center_u + su <= w - crop_w / 2.0)
-          & (window.center_v + sv >= crop_h / 2.0)
-          & (window.center_v + sv <= h - crop_h / 2.0))
-
-    cam_shifts = solve_shift(torch.as_tensor(su, device=dev),
-                             torch.as_tensor(sv, device=dev), dmin, depth_to,
-                             dmin, du, dv, w, h, camera.focal)
-    xyz = points.reshape(-1, 3).float().contiguous()
-    payload = image.reshape(-1, image.shape[-1]).float().contiguous()
-    valid = torch.ones(xyz.shape[0], dtype=torch.float32, device=dev)
+    su, sv, ok, cam_shifts = candidate_shifts(
+        window, zoom_factor, shift_range, anchor, h, w, camera, grid, dev)
+    xyz, payload, valid = flat_cloud(points, image)
     scores = []
     for i in range(cam_shifts.shape[0]):
         pose = make_pose(cam_shifts[i], camera.focal, camera.baseline)
