@@ -33,14 +33,13 @@ SOURCES = {
     "splat": (["-fmad=false"], {
         "kbe_splat_zee": ([_P, _P, _P, _I, _I, _I, _P, _P], _I),
         "kbe_splat_degrid": ([_P, _I, _I, _P, _P], _I),
-        "kbe_splat_accumulate": (
-            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P], _I),
+        "kbe_splat_route": ([_P] * 4 + [_I] * 3 + [_P] * 3, _I),
+        "kbe_splat_sum": ([_P] * 5 + [_I] * 4 + [_P] * 2, _I),
     }),
     "discfill": ([], {
-        "kbe_discfill_set_tables": ([_P, _P], _I),
+        "kbe_discfill_set_tables": ([_P], _I),
         "kbe_discfill_max_steps": ([], _I),
-        "kbe_discfill": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-                         _I),
+        "kbe_discfill": ([_P, _P] + [_I] * 8 + [_P, _P, _P], _I),
     }),
 }
 

@@ -12,7 +12,9 @@ pixel, so both versions read one offset table. Of the directions whose two
 rays end on valid pixels, the first with the strictly smallest f32
 endpoint distance wins, and the pixel copies all channels of the endpoint
 with the larger depth. ``steps`` bounds the march. The kernel is
-bit-identical to the plain version.
+bit-identical to the plain version: a half-warp marches one hole pixel's
+32 rays in rounds of steps, a direction's two rays a lane, and stops a
+direction as soon as it can no longer win (``csrc/discfill.cu``).
 
 ``fill_disocclusion_pallas`` is the entry point of the TPU package's other
 fill kernels (``discfill_pallas.py::_build_kernel``, ``_build_fused_kernel``):
@@ -142,35 +144,51 @@ def fill_plain(image: torch.Tensor, depth: torch.Tensor, steps: int,
 
 # ------------------------------------------------------------- CUDA wrapper
 
-_TABLES_SET = set()  # devices whose __constant__ tables are loaded
+_TABLES_SET = set()  # devices whose offset tables are loaded
+
+
+def _packed_tables(steps: int) -> np.ndarray:
+    """The kernel's (steps, 32) int32 table, [step][ray]: each offset as
+    (ox & 0xffff) | (oy << 16), so a warp's 32 rays read one 128 B row."""
+    ox, oy = _offset_tables(steps)
+    return np.ascontiguousarray(((ox & 0xffff) | (oy << 16)).T
+                                .astype(np.int32))
 
 
 def _load_tables(lib, device: torch.device) -> int:
     max_steps = lib.kbe_discfill_max_steps()
     if device not in _TABLES_SET:
-        ox, oy = _offset_tables(max_steps)
-        ox = np.ascontiguousarray(ox.astype(np.int16))
-        oy = np.ascontiguousarray(oy.astype(np.int16))
+        packed = _packed_tables(max_steps)
         with torch.cuda.device(device):
             _build.check(lib.kbe_discfill_set_tables(
-                ox.ctypes.data_as(ctypes.c_void_p),
-                oy.ctypes.data_as(ctypes.c_void_p)),
+                packed.ctypes.data_as(ctypes.c_void_p)),
                 "discfill_set_tables")
         _TABLES_SET.add(device)
     return max_steps
 
 
 def fill_cuda(image: torch.Tensor, depth: torch.Tensor, steps: int,
-              roi: Optional[Tuple[int, int, int, int]] = None
-              ) -> torch.Tensor:
+              roi: Optional[Tuple[int, int, int, int]] = None,
+              stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel ``discfill`` on one frame: ``image`` (H, W, C), ``depth``
-    (H, W, 1), contiguous f32 CUDA tensors -> (H, W, C)."""
+    (H, W, 1), contiguous f32 CUDA tensors -> (H, W, C). ``stats``, a
+    (2,) int64 CUDA tensor, gains the ray steps marched (up to each ray's
+    event) and the warps' rounds (a measurement aid; atomics only when
+    given)."""
     for name, t in (("image", image), ("depth", depth)):
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous f32 CUDA tensor")
     h, w, c = image.shape
     if depth.shape != (h, w, 1) or depth.device != image.device:
         raise ValueError("depth must be (H, W, 1) on the image's device")
+    if h >= 1 << 15 or w >= 1 << 15:
+        raise ValueError(f"{h}x{w}: the kernel packs coordinates in 15 bits")
+    if stats is not None and (stats.dtype != torch.int64
+                              or stats.shape != (2,)
+                              or stats.device != image.device):
+        raise ValueError("stats must be a (2,) int64 tensor on the card")
+    if image.data_ptr() % 16:
+        image = image.clone()  # the kernel copies 16 B a pixel when C = 4
     lib = _build.lib("discfill")
     max_steps = _load_tables(lib, image.device)
     if not 0 <= steps <= max_steps:
@@ -180,8 +198,8 @@ def fill_cuda(image: torch.Tensor, depth: torch.Tensor, steps: int,
     LAUNCHES["discfill"] += 1
     _build.check(lib.kbe_discfill(
         image.data_ptr(), depth.data_ptr(), h, w, c, steps, y0, y1, x0, x1,
-        out.data_ptr(), torch.cuda.current_stream(image.device).cuda_stream),
-        "discfill")
+        out.data_ptr(), stats.data_ptr() if stats is not None else None,
+        torch.cuda.current_stream(image.device).cuda_stream), "discfill")
     return out
 
 
@@ -218,8 +236,8 @@ def fill_disocclusion_pallas(image: torch.Tensor, depth: torch.Tensor,
     ``phase1_steps <= 0`` it runs the one-phase kernel (``_build_kernel``,
     ``_build_fused_kernel``). It states every schedule to be bit-identical
     to the one-phase march, and so is this function: every setting runs the
-    one ``discfill`` kernel, where each hole pixel's thread already stops at
-    its ray's first event. The phase arguments are checked for type and
+    one ``discfill`` kernel, where each ray already stops at its first
+    event. The phase arguments are checked for type and
     range and then unused."""
     _checked_int("steps", steps, 0)
     _checked_int("phase1_steps", phase1_steps, 0)

@@ -4,13 +4,19 @@ Port of ``kbe_tpu/ops/splat.py`` (the XLA scatter spec) and of the TPU
 kernels that compute it on the main path: ``splat_posed.py::
 _build_posed_kernel`` (the frame loop, C = 4) and ``splat_banded.py::
 _build_banded_wide_kernel`` (the inpainting bootstrap, C = 68). Three
-passes, each a kernel in ``csrc/splat.cu``:
+passes of the spec, four kernels in ``csrc/splat.cu``:
 
   zee:        each point writes the key 1e6 - f*b/(z+1e-7) to its corner of
               largest bilinear weight (ties NW, NE, SW, SE), keeping the min;
   degrid:     opposing-pair hole closing of the z-buffer;
   accumulate: each point adds w * payload and w to every in-image corner
-              whose z-buffer it is within +1 of.
+              whose z-buffer it is within +1 of. On the card: ``count``
+              counts those entries per pixel, ``place`` writes each (id
+              4 i + k, weight) into its pixel's segment (the scan of the
+              counts), and ``sum`` adds each pixel's entries in ascending
+              id order, the order of the plain version's ``index_add_`` on
+              the CPU (``count`` and ``place`` are one kernel,
+              ``splat_route``).
 
 ``render_grids`` is the shared body of the grid-cloud entry points of
 ``splat_routed``, ``splat_banded`` and ``legacy``: the TPU package has a
@@ -18,7 +24,8 @@ kernel generation behind each, all computing this one function.
 
 The wrappers below take the plain path only for CPU tensors; a CUDA tensor
 launches the kernel or raises. Each wrapper counts its launches in
-``LAUNCHES``, keyed ``"<pass>/c<C>"``.
+``LAUNCHES``, keyed ``"<pass>/c<C>"``: a render on the card launches
+``zee``, ``degrid``, ``count``, ``place`` and ``sum`` once each.
 
 The pose is a (5,) f32 tensor ``(sx, sy, sz, focal, focal * baseline)`` on
 the points' device: every pass adds the shift to the points itself, so the
@@ -26,9 +33,9 @@ frame loop passes the pose-invariant cloud (x, y pre-scaled by z/(z+1e-7)
 once per video, as ``apply_shift`` scales them) and each point's position
 is one f32 add, as in the spec.
 
-The kernels never drop a point. Float atomics make the accumulation order
-vary from run to run (about 1e-5 relative); the zee and degrid passes are
-exact.
+The kernels never drop a point. Every pass is exact: the card's render
+equals the plain version's on the CPU bit for bit, and is the same from
+run to run.
 """
 
 from __future__ import annotations
@@ -161,12 +168,113 @@ def _check_inputs(xyz, valid, pose, payload=None):
     n = xyz.shape[0]
     if xyz.shape != (n, 3) or valid.shape != (n,) or pose.shape != (5,):
         raise ValueError("expected xyz (N, 3), valid (N,), pose (5,)")
-    if payload is not None and (payload.ndim != 2 or payload.shape[0] != n):
-        raise ValueError("expected payload (N, C)")
+    if n > _MAX_POINTS:
+        raise ValueError(f"{n} points: the entry ids 4 i + k need N < 2^30")
+    if payload is not None:
+        if payload.ndim != 2 or payload.shape[0] != n:
+            raise ValueError("expected payload (N, C)")
+        if payload.shape[1] > _MAX_CHANNELS:
+            raise ValueError(f"C={payload.shape[1]}: the sum pass takes at "
+                             f"most {_MAX_CHANNELS} channels")
+
+
+def _check_zee(zee, height: int, width: int) -> None:
+    if (not zee.is_cuda or zee.dtype != torch.float32
+            or zee.shape != (height, width) or not zee.is_contiguous()):
+        raise ValueError("expected a contiguous (H, W) f32 CUDA z-buffer")
+
+
+def _check_counts(counts, height: int, width: int) -> None:
+    if (not counts.is_cuda or counts.dtype != torch.int32
+            or counts.shape != (height * width,)):
+        raise ValueError("expected the (H*W,) int32 CUDA counts of "
+                         "count_cuda")
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# the entry ids 4 i + k fill the high word of a key
+_MAX_POINTS = (1 << 30) - 1
+# the sum pass's long segments: a thread sums at most 4 channels of 256
+_MAX_CHANNELS = 1024
+
+# The launches, on checked inputs: ``lib`` the loaded library, ``stream``
+# the current stream of the inputs' device. ``splat`` checks once and calls
+# them in a row; the public wrappers below check their own inputs.
+
+
+def _zee(lib, stream, xyz, valid, pose, height, width, c):
+    zee = torch.full((height * width,), _ZFAR_KEY, dtype=torch.int32,
+                     device=xyz.device)
+    _count("zee", c)
+    _build.check(lib.kbe_splat_zee(
+        xyz.data_ptr(), valid.data_ptr(), pose.data_ptr(), xyz.shape[0],
+        height, width, zee.data_ptr(), stream), "splat_zee")
+    return zee
+
+
+def _degrid(lib, stream, keys, height, width, c):
+    out = torch.empty((height, width), dtype=torch.float32,
+                      device=keys.device)
+    _count("degrid", c)
+    _build.check(lib.kbe_splat_degrid(keys.data_ptr(), height, width,
+                                      out.data_ptr(), stream), "splat_degrid")
+    return out
+
+
+def _route(lib, stream, xyz, valid, pose, zee, height, width, cursor, keys):
+    _build.check(lib.kbe_splat_route(
+        xyz.data_ptr(), valid.data_ptr(), pose.data_ptr(), zee.data_ptr(),
+        xyz.shape[0], height, width, cursor.data_ptr(),
+        None if keys is None else keys.data_ptr(), stream),
+        "splat_route")
+
+
+def _count_entries(lib, stream, xyz, valid, pose, zee, height, width, c):
+    counts = torch.zeros((height * width,), dtype=torch.int32,
+                         device=xyz.device)
+    _count("count", c)
+    _route(lib, stream, xyz, valid, pose, zee, height, width, counts, None)
+    return counts
+
+
+def _place(lib, stream, xyz, valid, pose, zee, counts, height, width, c):
+    # the exclusive scan, as segment ends that the kernel counts down
+    cursor = torch.cumsum(counts, 0, dtype=torch.int32)
+    keys = torch.empty((max(4 * xyz.shape[0], 1),), dtype=torch.int64,
+                       device=xyz.device)
+    _count("place", c)
+    _route(lib, stream, xyz, valid, pose, zee, height, width, cursor, keys)
+    return cursor, keys
+
+
+def _sum(lib, stream, payload, counts, starts, keys, height, width,
+         normalize):
+    c = payload.shape[1]
+    if payload.data_ptr() % 16:
+        payload = payload.clone()  # C = 4 rows are read 16 B at a time
+    scratch = torch.empty_like(keys)
+    out = torch.empty((height * width, c + 1), dtype=torch.float32,
+                      device=payload.device)
+    _count("sum", c)
+    _build.check(lib.kbe_splat_sum(
+        payload.data_ptr(), counts.data_ptr(), starts.data_ptr(),
+        keys.data_ptr(), scratch.data_ptr(), c, height, width,
+        int(normalize), out.data_ptr(), stream), "splat_sum")
+    return out
+
+
+def _accumulate(lib, stream, xyz, valid, payload, pose, zee, height, width,
+                normalize):
+    c = payload.shape[1]
+    counts = _count_entries(lib, stream, xyz, valid, pose, zee, height,
+                            width, c)
+    starts, keys = _place(lib, stream, xyz, valid, pose, zee, counts, height,
+                          width, c)
+    return _sum(lib, stream, payload, counts, starts, keys, height, width,
+                normalize)
 
 
 def zee_cuda(xyz, valid, pose, height: int, width: int,
@@ -174,14 +282,8 @@ def zee_cuda(xyz, valid, pose, height: int, width: int,
     """Kernel ``splat_zee``: the (H*W,) int32 key-encoded z-buffer.
     ``c`` only names the launch in ``LAUNCHES``."""
     _check_inputs(xyz, valid, pose)
-    zee = torch.full((height * width,), _ZFAR_KEY, dtype=torch.int32,
-                     device=xyz.device)
-    lib = _build.lib("splat")
-    _count("zee", c)
-    _build.check(lib.kbe_splat_zee(
-        xyz.data_ptr(), valid.data_ptr(), pose.data_ptr(), xyz.shape[0],
-        height, width, zee.data_ptr(), _stream(xyz)), "splat_zee")
-    return zee
+    return _zee(_build.lib("splat"), _stream(xyz), xyz, valid, pose, height,
+                width, c)
 
 
 def degrid_cuda(zee_keys: torch.Tensor, height: int, width: int,
@@ -191,33 +293,64 @@ def degrid_cuda(zee_keys: torch.Tensor, height: int, width: int,
             or zee_keys.shape != (height * width,)
             or not zee_keys.is_contiguous()):
         raise ValueError("expected a contiguous (H*W,) int32 CUDA z-buffer")
-    out = torch.empty((height, width), dtype=torch.float32,
-                      device=zee_keys.device)
-    lib = _build.lib("splat")
-    _count("degrid", c)
-    _build.check(lib.kbe_splat_degrid(
-        zee_keys.data_ptr(), height, width, out.data_ptr(),
-        _stream(zee_keys)), "splat_degrid")
-    return out
+    return _degrid(_build.lib("splat"), _stream(zee_keys), zee_keys, height,
+                   width, c)
+
+
+def count_cuda(xyz, valid, pose, zee, height: int, width: int,
+               c: int) -> torch.Tensor:
+    """Kernel ``splat_route``, counting: the (H*W,) int32 number of each
+    pixel's entries, in-image corners of valid points that pass the z test
+    against the degridded ``zee``."""
+    _check_inputs(xyz, valid, pose)
+    _check_zee(zee, height, width)
+    return _count_entries(_build.lib("splat"), _stream(xyz), xyz, valid,
+                          pose, zee, height, width, c)
+
+
+def place_cuda(xyz, valid, pose, zee, counts: torch.Tensor, height: int,
+               width: int, c: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel ``splat_route``, placing: each pixel's entries as int64 keys
+    (id 4 i + k high, weight low), unordered, in its segment of ``keys``
+    (room for 4 N); returns (starts (H*W,), keys)."""
+    _check_inputs(xyz, valid, pose)
+    _check_zee(zee, height, width)
+    _check_counts(counts, height, width)
+    return _place(_build.lib("splat"), _stream(xyz), xyz, valid, pose, zee,
+                  counts, height, width, c)
+
+
+def sum_cuda(payload, counts, starts, keys, height: int, width: int,
+             normalize: bool = False) -> torch.Tensor:
+    """Kernel ``splat_sum``: every pixel's entries in ascending id order.
+    Returns (H*W, C+1) f32: the sums of w * payload and of w, or with
+    ``normalize`` the payload sums over (w sum + 1e-7) and the w sum. Sorts
+    long segments of ``keys`` in place (the same keys, so a rerun gives the
+    same sums)."""
+    if (not payload.is_cuda or payload.dtype != torch.float32
+            or payload.ndim != 2 or not payload.is_contiguous()):
+        raise ValueError("payload must be a contiguous (N, C) f32 CUDA "
+                         "tensor")
+    if payload.shape[1] > _MAX_CHANNELS:
+        raise ValueError(f"C={payload.shape[1]}: the sum pass takes at most "
+                         f"{_MAX_CHANNELS} channels")
+    _check_counts(counts, height, width)
+    _check_counts(starts, height, width)
+    if keys.dtype != torch.int64 or keys.device != payload.device:
+        raise ValueError("expected the int64 keys of place_cuda")
+    return _sum(_build.lib("splat"), _stream(payload), payload, counts,
+                starts, keys, height, width, normalize)
 
 
 def accumulate_cuda(xyz, valid, payload, pose, zee, height: int,
-                    width: int) -> torch.Tensor:
-    """Kernel ``splat_accumulate``: the raw (H*W, C+1) f32 sums."""
+                    width: int, normalize: bool = False) -> torch.Tensor:
+    """Kernel ``splat_route`` (count, then place) and ``splat_sum``: the
+    (H*W, C+1) f32 sums of ``accumulate_plain`` (normalised as ``splat``
+    does with ``normalize``), bit for bit."""
     _check_inputs(xyz, valid, pose, payload)
-    if (not zee.is_cuda or zee.dtype != torch.float32
-            or zee.shape != (height, width) or not zee.is_contiguous()):
-        raise ValueError("expected a contiguous (H, W) f32 CUDA z-buffer")
-    c = payload.shape[1]
-    acc = torch.zeros((height * width, c + 1), dtype=torch.float32,
-                      device=xyz.device)
-    lib = _build.lib("splat")
-    _count("accumulate", c)
-    _build.check(lib.kbe_splat_accumulate(
-        xyz.data_ptr(), valid.data_ptr(), payload.data_ptr(),
-        pose.data_ptr(), zee.data_ptr(), xyz.shape[0], c, height, width,
-        acc.data_ptr(), _stream(xyz)), "splat_accumulate")
-    return acc
+    _check_zee(zee, height, width)
+    return _accumulate(_build.lib("splat"), _stream(xyz), xyz, valid,
+                       payload, pose, zee, height, width, normalize)
 
 
 def decode_keys(keys: torch.Tensor) -> torch.Tensor:
@@ -237,13 +370,18 @@ def splat(xyz, payload, valid, pose, height: int,
     """
     c = payload.shape[1]
     if xyz.is_cuda:
-        keys = zee_cuda(xyz, valid, pose, height, width, c)
-        zee = degrid_cuda(keys, height, width, c)
-        acc = accumulate_cuda(xyz, valid, payload, pose, zee, height, width)
+        _check_inputs(xyz, valid, pose, payload)
+        lib, stream = _build.lib("splat"), _stream(xyz)
+        keys = _zee(lib, stream, xyz, valid, pose, height, width, c)
+        zee = _degrid(lib, stream, keys, height, width, c)
+        # the sum pass divides as the line below does, bit for bit
+        acc = _accumulate(lib, stream, xyz, valid, payload, pose, zee,
+                          height, width, True)
+        rendered = acc[:, :c]
     else:
         zee = degrid_plain(zee_plain(xyz, valid, pose, height, width))
         acc = accumulate_plain(xyz, valid, payload, pose, zee, height, width)
-    rendered = acc[:, :c] / (acc[:, c:] + 1e-7)
+        rendered = acc[:, :c] / (acc[:, c:] + 1e-7)
     return (rendered.reshape(height, width, c),
             acc[:, c:].reshape(height, width, 1))
 

@@ -5,8 +5,8 @@ Port of ``kbe_tpu/ops/splat_routed.py::render_grids_routed`` and
 the cloud to output tiles through a CSR table and gathers with one-hot
 matrix products. That routing is the TPU's schedule; the function is the
 z-buffered splat of ``kbe_torch.ops.splat``, which on CUDA tensors runs the
-kernels ``splat_zee``, ``splat_degrid`` and ``splat_accumulate`` of
-``csrc/splat.cu`` (one thread per point, atomics) at any payload width.
+kernels ``splat_zee``, ``splat_degrid``, ``splat_place`` and ``splat_sum``
+of ``csrc/splat.cu`` at any payload width.
 
 Not carried over: ``capacity_factor`` and the limit of 72 payload channels,
 which sized the CSR table and the VMEM tiles. ``overflow`` is always false,

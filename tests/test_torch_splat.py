@@ -7,6 +7,7 @@ the JAX package holds its own splat kernels to (tests/test_splat_posed.py).
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 from kbe_tpu.ops.geometry import apply_shift as apply_shift_jax
@@ -141,3 +142,98 @@ def test_decode_keys_inverts_the_order_preserving_encoding():
     back = S.decode_keys(torch.as_tensor(keys)).numpy()
     np.testing.assert_array_equal(back.view(np.int32), bits)
     assert S._ZFAR_KEY == int(np.float32(1e6).view(np.int32))
+
+
+# ------------------------------------------- the order the card reproduces
+
+def _entries(xyz, valid, pose, zee, h, w):
+    """Per entry e = 4 i + k (numpy, (N*4,)): its pixel (-1 outside the
+    image or for a point that is not ok), its weight, and whether it passes
+    the z test, from the plain version's own projection."""
+    u, v, err, ok = S._project(xyz, valid, pose, h, w)
+    xi, yi, wt = S._neighbor_weights(u, v)
+    flat, inb = S._flat_index(xi, yi, h, w, ok[:, None])
+    zn = zee.reshape(-1)[flat.clamp(max=h * w - 1)]
+    vis = inb & (err[:, None] <= zn + 1.0)
+    pix = torch.where(inb, flat, torch.full_like(flat, -1))
+    return (pix.reshape(-1).numpy(), wt.reshape(-1).numpy(),
+            vis.reshape(-1).numpy())
+
+
+def _ordered_sum(entry_ids, wt, vis, payload, rows):
+    """Sum each row's visible entries in the given order, one f32 add at a
+    time from +0.0; ``entry_ids[p]`` are the entries of pixel p."""
+    c = payload.shape[1]
+    out = np.zeros((rows, c + 1), np.float32)
+    for p, ids in enumerate(entry_ids):
+        for e in ids:
+            if vis[e]:
+                w = np.float32(wt[e])
+                out[p, :c] = out[p, :c] + w * payload[e >> 2]
+                out[p, c] = out[p, c] + w
+    return out
+
+
+def _collision_cloud(c, seed):
+    """Two 20x24 grids whose points pile up: a third of them on a few
+    pixels (segments of 30-200 entries), the rest spread, some invalid."""
+    rng = np.random.default_rng(seed)
+    h, w, focal = 20, 24, 32.0
+    xyz, _, _ = _cloud(h, w, 2, c, seed, focal)
+    pts = xyz.reshape(-1, 3).copy()
+    pile = rng.uniform(size=len(pts)) < 0.3
+    spot = rng.integers(0, 3, size=len(pts))
+    z = pts[:, 2]
+    pts[pile, 0] = (spot[pile] * 2.3 - 2.0) * z[pile] / focal
+    pts[pile, 1] = (spot[pile] * 1.7 - 1.0) * z[pile] / focal
+    valid = (rng.uniform(size=len(pts)) > 0.1).astype(np.float32)
+    payload = rng.uniform(-1, 1, (len(pts), c)).astype(np.float32)
+    pose = S.make_pose(torch.tensor([0.5, -0.25, 2.0]), focal, 20.0)
+    t = (torch.as_tensor(pts), torch.as_tensor(valid),
+         torch.as_tensor(payload), pose)
+    zee = S.degrid_plain(S.zee_plain(t[0], t[1], pose, h, w))
+    return t, zee, h, w
+
+
+def test_accumulate_plain_sums_in_ascending_entry_order():
+    """The plain version's index_add_ on the CPU sums each pixel's visible
+    entries in ascending e = 4 i + k, from +0.0, one f32 add at a time:
+    the order the card's sum pass reproduces."""
+    (xyz, valid, payload, pose), zee, h, w = _collision_cloud(5, seed=2)
+    pix, wt, vis = _entries(xyz, valid, pose, zee, h, w)
+    segments = [np.flatnonzero(pix == p) for p in range(h * w)]
+    assert max(len(s) for s in segments) > 32  # long segments too
+    want = _ordered_sum(segments, wt, vis, payload.numpy(), h * w)
+    got = S.accumulate_plain(xyz, valid, payload, pose, zee, h, w).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("c", [4, 68])
+def test_count_scan_place_sort_sum_equals_plain(c):
+    """The card's passes emulated in numpy: count each in-image corner that
+    passes the z test per pixel, scan, place those entries in a shuffled
+    order (the integer atomics' order is arbitrary), sort each segment,
+    sum in that order. Bit-equal to ``accumulate_plain``, rendered planes
+    too."""
+    (xyz, valid, payload, pose), zee, h, w = _collision_cloud(c, seed=c)
+    pix, wt, vis = _entries(xyz, valid, pose, zee, h, w)
+    counted = (pix >= 0) & vis
+    counts = np.bincount(pix[counted], minlength=h * w)
+    ends = np.cumsum(counts)
+    ids = np.full(counted.sum(), -1)
+    cursor = ends.copy()
+    for e in np.random.default_rng(c).permutation(np.flatnonzero(counted)):
+        cursor[pix[e]] -= 1
+        ids[cursor[pix[e]]] = e
+    assert (ids >= 0).all() and np.array_equal(cursor, ends - counts)
+    segments = [np.sort(ids[s:s + n]) for s, n in zip(cursor, counts)]
+    got = _ordered_sum(segments, wt, vis, payload.numpy(), h * w)
+    want = S.accumulate_plain(xyz, valid, payload, pose, zee, h, w)
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  want.numpy().view(np.int32))
+    # the sum pass's normalisation, as splat divides
+    got_r = torch.as_tensor(got[:, :c]) / (torch.as_tensor(got[:, c:])
+                                           + 1e-7)
+    want_r, want_e = S.splat(xyz, payload, valid, pose, h, w)
+    assert torch.equal(got_r.reshape(h, w, c), want_r)
+    assert torch.equal(torch.as_tensor(got[:, c:]).reshape(h, w, 1), want_e)

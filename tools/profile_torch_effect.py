@@ -2,15 +2,17 @@
 """Where the time of kbe_torch's effect goes on the card.
 
     python tools/profile_torch_effect.py [--size 1024] [--steps 75]
-                                         [--mode default]
+                                         [--mode default] [--tree DIR]
 
 Runs the 3D Ken Burns effect of ``kbe_torch`` (production precision mix:
 f32 depth nets, bf16 inpainting nets; seeded random weights; the demo
 scene) once to warm up, then once under ``torch.profiler`` with CPU and
-CUDA activities. Prints the wall time of the profiled run split into front
-end and pose loop (host clock around ``torch.cuda.synchronize``), the
-device time of the top kernels, and the device's busy and idle shares
-(busy = the union of kernel intervals on the device timeline).
+CUDA activities, the front end and the pose loop each under a profiler of
+its own. Prints the wall time of the profiled run split into front end
+and pose loop (host clock around ``torch.cuda.synchronize``), the kernel
+launches of the run and of the loop alone (per frame), the device time of
+the top kernels, and the device's busy and idle shares (busy = the union
+of kernel intervals on the device timeline).
 ``--mode`` picks one of the inference modes that ``chip_smoke.py`` drives
 (dolly, 2d, partial_inpainting, routed+xla, ...), by the same table.
 """
@@ -49,7 +51,12 @@ def main() -> int:
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--mode", default="default",
                     help="'default' or a mode name of chip_smoke.MODES")
+    ap.add_argument("--tree", default=None,
+                    help="import kbe_torch and chip_smoke from this checkout "
+                         "(default: this one), to profile another version")
     args = ap.parse_args()
+    if args.tree:
+        sys.path.insert(0, os.path.abspath(args.tree))
 
     import torch
     from torch.autograd import DeviceType
@@ -85,24 +92,32 @@ def main() -> int:
     fn(pipe.models, image)
     torch.cuda.synchronize()
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the two halves under profilers of their own, so that the pose loop's
+    # launches are counted apart
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as front_prof:
         t0 = time.perf_counter()
         state = fn.front_end(pipe.models, image)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+    with profile(activities=activities) as loop_prof:
+        t2 = time.perf_counter()
         fn.render_frames(state)
         torch.cuda.synchronize()
-        t2 = time.perf_counter()
-    wall_us = (t2 - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = _busy_us(kernels)
+        t3 = time.perf_counter()
+    wall_us = ((t1 - t0) + (t3 - t2)) * 1e6
+    front, loop = ([e for e in p.events() if e.device_type == DeviceType.CUDA]
+                   for p in (front_prof, loop_prof))
+    kernels = front + loop
+    busy = _busy_us(front) + _busy_us(loop)
     print(f"{smi}; mode {args.mode}; {size}^2 x {args.steps} frames; "
           f"profiled run "
-          f"{(t2 - t0) * 1e3:.3f} ms (front end {(t1 - t0) * 1e3:.3f} ms, "
-          f"pose loop {(t2 - t1) * 1e3:.3f} ms); device busy "
+          f"{wall_us / 1e3:.3f} ms (front end {(t1 - t0) * 1e3:.3f} ms, "
+          f"pose loop {(t3 - t2) * 1e3:.3f} ms); device busy "
           f"{busy / 1e3:.3f} ms = {busy / wall_us:.4f} of the wall time, "
-          f"idle {1 - busy / wall_us:.4f}; {len(kernels)} kernel launches")
+          f"idle {1 - busy / wall_us:.4f}; {len(kernels)} kernel launches, "
+          f"{len(loop)} in the pose loop = {len(loop) / args.steps:.2f} a "
+          f"frame")
     totals = {}
     for e in kernels:
         name = e.name if len(e.name) <= 70 else e.name[:67] + "..."
