@@ -7,8 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile ``kbe_torch/ops/csrc/*.cu`` with nvcc (sm_90a);
   3. kernels vs their plain PyTorch versions at the main path's shapes:
-     (a) splat, C=4, a 3-grid 1024^2 cloud at a frame pose;
-     (b) splat, C=68, one 1024^2 grid (the inpainting bootstrap);
+     (a) splat, C=4, a 3-grid 1024^2 cloud at a frame pose, its valid
+         points alone, as ``render_posed`` splats them (no mask);
+     (b) splat, C=68, one 1024^2 grid, no mask (the inpainting bootstrap);
      (c) fill at 1024^2, K=128, with and without the ROI (bit-identical);
      (d) two identical renders at C=4 and at C=68: bit-equal;
      (a2) splat, C=4, one grid at a pose with a focal of its own (dolly);
@@ -16,14 +17,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      (p) a pathological cloud: 65,536 points of a 1024^2 grid on one pixel;
   4. main path: the 1024^2, 75-frame effect at the production precision mix
      (f32 depth nets, bf16 inpainting nets), seeded random weights; checks
-     the frames and that every kernel ran (77 renders of five splat
-     launches each: zee, degrid, count, place, sum; 75 fills);
+     the frames and that every kernel ran (77 renders of four splat
+     calls each: front (three kernels), count, place, sum; 75 fills);
+     prints the
+     scene's size and each grid's valid share;
   5. card vs CPU: the default effect, dolly and partial-conv inpainting at
      256^2, f32, 5 steps, same weights, mean SSIM of the frames >= 0.99;
   6. the other entry points and inference modes:
      (e) every grid renderer (``render_grids_banded``, ``_routed`` at C=4
          and C=68, ``_pallas``, ``_delta``) on the card against the plain
-         passes at 1024^2, five launches a call, then driven over the
+         passes at 1024^2, four launches a call, then driven over the
          poses of a move for its launch count;
      (f) ``fill_disocclusion_pallas`` under every phase schedule, with and
          without the ROI, at 8 and 128 steps: bit-identical to the plain
@@ -41,10 +44,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      (j) the CLI's ``run`` at 256^2, defaults and ``--dolly``;
   7. the ``{"kernels": [...]}`` line, then the device line last. A row's
      ``launches`` are those of the run named in its ``path``, counted from
-     zero just before that run.
+     zero just before that run. ``ms`` is the call's time (CUDA events
+     around the Python wrapper), ``device_ms`` the time of the row's own
+     kernels on the device (``torch.profiler`` over the same number of
+     calls), ``device_all_ms`` that of every kernel the call launches.
 
-Tolerances: none. Every kernel is exact: zee, degrid and the fill are
-bit-equal to their plain versions on the card, and the accumulation (the
+Tolerances: none. Every kernel is exact: the front half's z-buffer keys and
+its degridded buffer, and the fill, are bit-equal to their plain versions
+on the card (the keys and the degrid compared apart), and the accumulation (the
 place and sum passes) and the normalised render are bit-equal to the plain
 version run on the CPU, whose ``index_add_`` sums each pixel's entries in
 ascending entry order (on the card ``index_add_`` uses atomics, so the
@@ -80,6 +87,7 @@ K7_ZEE = "kbe_tpu/ops/legacy/splat_pallas.py:68"      # _build_zee
 K7_ACC = "kbe_tpu/ops/legacy/splat_pallas.py:129"     # _build_acc
 K7_DELTA = "kbe_tpu/ops/legacy/splat_delta.py:85"     # _build_delta_kernel
 SPLAT_SRC = "kbe_torch/ops/csrc/splat.cu"
+FRONT_KERNELS = ("splat_fill", "splat_zee", "splat_degrid")
 FILL_SRC = "kbe_torch/ops/csrc/discfill.cu"
 
 
@@ -102,6 +110,60 @@ def timed(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_events(fn, reps: int):
+    """The device intervals (name, start us, end us) of ``reps`` calls of
+    ``fn``, from ``torch.profiler``: a warm-up step of ``reps`` calls,
+    which the profiler drops (a profile's first kernels can go missing),
+    then the recorded one. Each kernel must come a multiple of ``reps``
+    times; a profile that lost some is taken again, twice at most."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # the device timeline also holds the schedule's step annotation
+        events = [(e.name, e.time_range.start, e.time_range.end)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith("ProfilerStep")]
+        counts = collections.Counter(name for name, _, _ in events)
+        if events and all(n % reps == 0 for n in counts.values()):
+            return events
+    raise AssertionError(f"profiles of {reps} calls lost kernels: {counts}")
+
+
+def device_times(fn, reps: int):
+    """{kernel name: mean device ms a call of ``fn``} over ``reps``
+    calls (``device_events``)."""
+    times = {}
+    for name, start, end in device_events(fn, reps):
+        times[name] = times.get(name, 0.0) + (end - start) / reps / 1e3
+    return times
+
+
+def device_ms(fn, reps: int, kernels):
+    """(own, all): the mean device ms a call of ``fn`` spends in the
+    kernels whose names contain one of ``kernels``, and in every kernel it
+    launches."""
+    times = device_times(fn, reps)
+    own = sum(t for name, t in times.items()
+              if any(k in name for k in kernels))
+    if own == 0.0:
+        raise AssertionError(f"no device time in kernels {kernels}; the "
+                             f"profile holds {sorted(times)}")
+    return own, sum(times.values())
 
 
 def bound(nbytes: float, nops: float):
@@ -200,22 +262,28 @@ def accumulate_on_cpu(xyz, valid, payload, pose, zee, h: int, w: int):
     order the card's sum pass reproduces (on the card it uses atomics)."""
     from kbe_torch.ops import splat as S
 
-    return S.accumulate_plain(xyz.cpu(), valid.cpu(), payload.cpu(),
-                              pose.cpu(), zee.cpu(), h, w)
+    return S.accumulate_plain(xyz.cpu(), None if valid is None
+                              else valid.cpu(), payload.cpu(), pose.cpu(),
+                              zee.cpu(), h, w)
 
 
 def splat_compare(label, xyz, payload, valid, pose, h: int, w: int):
     """Each splat kernel against its plain version on the same inputs (the
     sums against the CPU's), and the whole render through ``splat``: all
-    bit-equal. Returns the kernels' outputs and the largest difference."""
+    bit-equal; the front half's keys and degridded buffer apart. Returns
+    the kernels' outputs."""
+    import torch
     from kbe_torch.ops import splat as S
 
     n, c = payload.shape
-    keys = S.zee_cuda(xyz, valid, pose, h, w, c)
-    zee_k = S.decode_keys(keys).reshape(h, w)
-    assert_equal(f"{label} zee", zee_k, S.zee_plain(xyz, valid, pose, h, w))
-    deg_k = S.degrid_cuda(keys, h, w, c)
-    assert_equal(f"{label} degrid", deg_k, S.degrid_plain(zee_k))
+    counts = torch.full((h * w,), -1, dtype=torch.int32, device=xyz.device)
+    keys, deg_k = S.front_cuda(xyz, valid, pose, h, w, c, counts=counts)
+    zee_p = S.zee_plain(xyz, valid, pose, h, w)
+    assert_equal(f"{label} front keys", S.decode_keys(keys).reshape(h, w),
+                 zee_p)
+    assert_equal(f"{label} front degrid", deg_k, S.degrid_plain(zee_p))
+    if bool(counts.any()):
+        raise AssertionError(f"{label} front: counts not zeroed")
     acc_k = S.accumulate_cuda(xyz, valid, payload, pose, deg_k, h, w)
     acc_p = accumulate_on_cpu(xyz, valid, payload, pose, deg_k, h, w)
     assert_equal(f"{label} accumulate", acc_k, acc_p)
@@ -228,34 +296,51 @@ def splat_compare(label, xyz, payload, valid, pose, h: int, w: int):
     counts = S.count_cuda(xyz, valid, pose, deg_k, h, w, c)
     entries = int(counts.sum())
     longest = int(counts.max())
-    log(f"{label}: N={n} C={c} zee/degrid/accumulate/render bit-equal to "
-        f"the plain passes (sums on the CPU); {entries} visible entries, "
-        f"longest segment {longest}; hole share "
-        f"{1.0 - covered / (h * w):.4f}")
-    return keys, counts, zee_k, deg_k, r_k, x_k
+    live = n if valid is None else int((valid > 0).sum())
+    log(f"{label}: N={n} ({live} valid, "
+        f"{'a mask' if valid is not None else 'no mask'}) C={c} front keys/"
+        f"front degrid/accumulate/render bit-equal to the plain passes (sums "
+        f"on the CPU); {entries} visible entries, longest segment {longest}; "
+        f"hole share {1.0 - covered / (h * w):.4f}")
+    return counts, deg_k, r_k, x_k
 
 
 def splat_phase(label, xyz, payload, valid, pose, replaces, rows,
                 entry=None, **extra):
     """Each splat kernel against its plain version on the same inputs, then
-    timed. ``replaces`` is one TPU kernel, or one per pass (zee, degrid,
+    timed. ``replaces`` is one TPU kernel, or one per row (front,
     accumulate); ``entry`` names the entry point in the rows of a path off
     the main one, whose launch counts the caller fills in; ``extra`` keys
-    go into each row. The accumulate row times the count, place and sum
-    passes together (and each alone beside it); its launches are the sum
-    pass's."""
+    go into each row. The front row times the launch as ``splat`` makes
+    it (the counts zeroed too); the accumulate row times the count, place
+    and sum passes together (and each alone beside it); its launches are
+    the sum pass's."""
+    import torch
     from kbe_torch.ops import splat as S
 
     n, c = payload.shape
     h = w = SIZE
-    keys, counts, zee_k, deg_k, r_k, x_k = splat_compare(
-        label, xyz, payload, valid, pose, h, w)
+    counts, deg_k, r_k, x_k = splat_compare(label, xyz, payload, valid, pose,
+                                            h, w)
+    buf = torch.empty((h * w,), dtype=torch.int32, device=xyz.device)
+
+    def front():
+        return S.front_cuda(xyz, valid, pose, h, w, c, counts=buf)
+
+    def acc():
+        return S.accumulate_cuda(xyz, valid, payload, pose, deg_k, h, w)
 
     reps, preps = 20, 3
-    ms_zee = timed(lambda: S.zee_cuda(xyz, valid, pose, h, w, c), reps)
-    pms_zee = timed(lambda: S.zee_plain(xyz, valid, pose, h, w), preps)
-    ms_deg = timed(lambda: S.degrid_cuda(keys, h, w, c), reps)
-    pms_deg = timed(lambda: S.degrid_plain(zee_k), preps)
+    ms_front = timed(front, reps)
+    front_times = device_times(front, reps)
+    dev_phases = {k: sum(t for name, t in front_times.items() if k in name)
+                  for k in FRONT_KERNELS}
+    if not all(dev_phases.values()):
+        raise AssertionError(f"{label}: the front's kernels are missing from "
+                             f"the profile's {sorted(front_times)}")
+    dev_front = (sum(dev_phases.values()), sum(front_times.values()))
+    pms_front = timed(lambda: S.degrid_plain(S.zee_plain(xyz, valid, pose,
+                                                         h, w)), preps)
     ms_count = timed(lambda: S.count_cuda(xyz, valid, pose, deg_k, h, w, c),
                      reps)
     ms_place = timed(lambda: S.place_cuda(xyz, valid, pose, deg_k, counts,
@@ -263,33 +348,47 @@ def splat_phase(label, xyz, payload, valid, pose, replaces, rows,
     starts, keys_s = S.place_cuda(xyz, valid, pose, deg_k, counts, h, w, c)
     ms_sum = timed(lambda: S.sum_cuda(payload, counts, starts, keys_s, h, w),
                    reps)
-    ms_acc = timed(lambda: S.accumulate_cuda(xyz, valid, payload, pose,
-                                             deg_k, h, w), reps)
+    ms_acc = timed(acc, reps)
+    dev_acc = device_ms(acc, reps, ("splat_route", "splat_sum"))
     pms_acc = timed(lambda: S.accumulate_plain(xyz, valid, payload, pose,
                                                deg_k, h, w), preps)
     ms_all = timed(lambda: S.splat(xyz, payload, valid, pose, h, w), reps)
-    log(f"{label}: kernel ms zee {ms_zee:.4f} degrid {ms_deg:.4f} "
-        f"accumulate {ms_acc:.4f} (count {ms_count:.4f}, scan+place "
-        f"{ms_place:.4f}, sum {ms_sum:.4f}) whole render {ms_all:.4f}; plain "
-        f"ms zee "
-        f"{pms_zee:.4f} degrid {pms_deg:.4f} accumulate {pms_acc:.4f}")
+    log(f"{label}: kernel ms front {ms_front:.4f} (device {dev_front[0]:.4f}"
+        f": {', '.join(f'{k} {t:.4f}' for k, t in dev_phases.items())})"
+        f" accumulate {ms_acc:.4f} (device {dev_acc[0]:.4f}; count "
+        f"{ms_count:.4f}, scan+place {ms_place:.4f}, sum {ms_sum:.4f}) whole "
+        f"render {ms_all:.4f}; plain ms front {pms_front:.4f} accumulate "
+        f"{pms_acc:.4f}")
     hw = h * w
+    live = n if valid is None else int((valid > 0).sum())
     tag = f"c{c}"
     if isinstance(replaces, str):
-        replaces = (replaces,) * 3
-    for (kern, key, ms, pms, nbytes, nops), repl in zip((
-            ("zee", "zee", ms_zee, pms_zee, n * 16 + 20 + hw * 4, n * 20),
-            ("degrid", "degrid", ms_deg, pms_deg, hw * 8, hw * 20),
-            ("accumulate", "sum", ms_acc, pms_acc,
+        replaces = (replaces,) * 2
+    # the front half's bytes: the mask if one is passed, the xyz of the
+    # valid points, the pose, and the keys, the degridded buffer and the
+    # counts written once each
+    front_bytes = (0 if valid is None else 4 * n) + 12 * live + 20 + 3 * hw * 4
+    for (kern, key, ms, dev, pms, nbytes, nops), repl in zip((
+            ("front", "front", ms_front, dev_front, pms_front, front_bytes,
+             live * 20 + hw * 20),
+            ("accumulate", "sum", ms_acc, dev_acc, pms_acc,
              n * (16 + 4 * c) + 20 + hw * 4 + hw * (c + 1) * 4,
              n * (20 + 4 * 2 * (c + 1)))), replaces):
         b_ms, b_by = bound(nbytes, nops)
         row = {"name": f"splat_{kern}[{tag}]", "route": "cuda",
                "source": SPLAT_SRC, "replaces": repl,
                "count_key": f"{key}/{tag}", "max_abs_err": 0.0,
-               "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+               "ms": ms, "device_ms": dev[0], "device_all_ms": dev[1],
+               "plain_ms": pms, "bound_ms": b_ms,
                "bound_by": b_by, "library_ms": None}
-        if kern == "accumulate":
+        if kern == "front":
+            # the front half's kernels: fill, zee, degrid
+            row.update(kernel_device_ms=dev_phases, points=n,
+                       valid_points=live, mask=valid is not None,
+                       bound_note="fill (keys + counts) + zee (4 B mask a "
+                       "point if a mask is passed, 12 B xyz a valid point) "
+                       "+ degrid (f32 written)")
+        else:
             # the function's kernels: splat_route twice, then splat_sum
             row.update(count_ms=ms_count, place_ms=ms_place, sum_ms=ms_sum,
                        pass_keys=[f"{k}/{tag}"
@@ -334,6 +433,8 @@ def fill_phase(label, render, existing, roi, rows, name="discfill",
     full_march = march_steps(depth, 128, roi)
     marched, rounds = fill_steps(render, depth, roi)
     ms = timed(lambda: D.fill_cuda(render, depth, 128, roi), 20)
+    dev = device_ms(lambda: D.fill_cuda(render, depth, 128, roi), 20,
+                    ("discfill",))
     pms = timed(lambda: D.fill_plain(render, depth, 128, roi), 2)
     log(f"{label}: {h}x{w}x{c}, {holes} hole pixels, bit-identical with and "
         f"without ROI {roi}; ray steps in the ROI: {full_march} to every "
@@ -345,7 +446,8 @@ def fill_phase(label, render, existing, roi, rows, name="discfill",
     b_ms, b_by = bound(h * w * (2 * c + 1) * 4, marched * 4)
     row = {"name": name, "route": "cuda", "source": FILL_SRC,
            "replaces": K2, "count_key": "discfill", "max_abs_err": 0.0,
-           "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by,
+           "ms": ms, "device_ms": dev[0], "device_all_ms": dev[1],
+           "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": None, "march_steps_full": full_march,
            "march_steps": marched, "warp_rounds": rounds}
     row.update(extra)
@@ -365,24 +467,23 @@ def kernel_phases(rows, more):
     scene = S.prepare_scene(xyz, payload, valid)
     shift = shift.cuda()
     pose = S.make_pose(shift, FOCAL, BASELINE)
-    render, existing = splat_phase("(a) splat C=4", scene.xyz,
-                                   scene.payload, scene.valid, pose, K1,
-                                   rows)
+    render, existing = splat_phase("(a) splat C=4", scene.kept_xyz,
+                                   scene.kept_payload, None, pose, K1, rows)
     # (a2) the dolly loop's splat: one grid, no inpainted grids behind it,
     # and a focal of the step's own in the pose
     xyz1, payload1, valid1 = make_cloud(1, 4, seed=3, shift=shift.cpu())
     scene1 = S.prepare_scene(xyz1, payload1, valid1)
-    splat_phase("(a2) splat C=4, one grid, dolly focal", scene1.xyz,
-                scene1.payload, scene1.valid,
+    splat_phase("(a2) splat C=4, one grid, dolly focal", scene1.kept_xyz,
+                scene1.kept_payload, None,
                 S.make_pose(shift, FOCAL * 1.21875, BASELINE), K1, more,
                 entry="render_posed", mode="dolly")
     # (b) the bootstrap splat: one grid, 68 channels, unscaled points plus
-    # the shift
+    # the shift, no mask
     xyz68, payload68, _ = make_cloud(1, 68, seed=2, shift=shift.cpu())
     pts = (xyz68.reshape(-1, 3) + shift).contiguous()
     zero = S.make_pose(torch.zeros(3, device="cuda"), FOCAL, BASELINE)
-    splat_phase("(b) splat C=68", pts, payload68.reshape(-1, 68),
-                torch.ones(SIZE * SIZE, device="cuda"), zero, K3, rows)
+    splat_phase("(b) splat C=68", pts, payload68.reshape(-1, 68), None,
+                zero, K3, rows)
     # (c) the fill, on the rendered frame of (a)
     zoom = ZoomSettings.default_3d(SIZE, SIZE)
     fill_phase("(c) fill", render, existing,
@@ -398,9 +499,7 @@ def kernel_phases(rows, more):
     # (d) run to run: two identical renders at each width
     for c, again in ((4, lambda: S.render_posed(scene, pose, SIZE, SIZE)),
                      (68, lambda: S.splat(pts, payload68.reshape(-1, 68),
-                                          torch.ones(SIZE * SIZE,
-                                                     device="cuda"),
-                                          zero, SIZE, SIZE))):
+                                          None, zero, SIZE, SIZE))):
         (r1, x1), (r2, x2) = again(), again()
         assert_equal(f"(d) two identical C={c} renders", r1, r2)
         assert_equal(f"(d) two identical C={c} weights", x1, x2)
@@ -467,7 +566,7 @@ def main_path():
     counts = dict(splat.LAUNCHES)
     counts.update(discfill.LAUNCHES)
     log(f"main path launch counts: {json.dumps(counts, sort_keys=True)}")
-    for kern in ("zee", "degrid", "count", "place", "sum"):
+    for kern in SPLAT_PASSES:
         c4, c68 = counts.get(f"{kern}/c4", 0), counts.get(f"{kern}/c68", 0)
         if (c4, c68) != (STEPS, 2):
             raise AssertionError(f"splat_{kern}: {c4} frame + {c68} "
@@ -494,6 +593,14 @@ def main_path():
         t2 = time.perf_counter()
         times.append((t2 - t0, t1 - t0, t2 - t1))
     total, front, loop = min(times)
+    scene = state.scene
+    grids = scene.valid.shape[0] // (SIZE * SIZE)
+    shares = [round(float(v.mean()), 6)
+              for v in scene.valid.reshape(grids, -1)]
+    log(f"main path scene: {grids} grids of {SIZE}^2 = {scene.xyz.shape[0]} "
+        f"points, {scene.kept_xyz.shape[0]} valid "
+        f"({scene.kept_xyz.shape[0] / scene.xyz.shape[0]:.6f}), which the "
+        f"frame loop splats with no mask; valid share per grid {shares}")
     log(f"main path {SIZE}^2 x {STEPS} frames, bf16 inpainting + f32 depth: "
         f"best of 2 {total:.4f} s = {STEPS / total:.3f} frames/s "
         f"(front end {front:.4f} s, pose loop {loop:.4f} s = "
@@ -574,15 +681,17 @@ def settle(row, counts) -> None:
         row["pass_launches"] = {k: counts.get(k, 0) for k in keys}
 
 
+SPLAT_PASSES = ("front", "count", "place", "sum")
+
+
 def splat_counts(c: int, n: int):
-    return {f"{k}/c{c}": n
-            for k in ("zee", "degrid", "count", "place", "sum")}
+    return {f"{k}/c{c}": n for k in SPLAT_PASSES}
 
 
 def grid_renderer_phases(rows):
     """(e) every ``render_grids_*`` generation on the card: the kernels
     against the plain passes, the entry point's own output against the
-    plain render (all bit-equal, the sums on the CPU), its five launches,
+    plain render (all bit-equal, the sums on the CPU), its four launches,
     and a driven run over the poses of a move."""
     import torch
     from kbe_torch.ops import legacy, splat as S, splat_banded, splat_routed
@@ -595,7 +704,7 @@ def grid_renderer_phases(rows):
         ("render_grids_routed", splat_routed.render_grids_routed, 3, 4, K5),
         ("render_grids_routed", splat_routed.render_grids_routed, 1, 68, K5),
         ("render_grids_pallas", legacy.render_grids_pallas, 3, 4,
-         (K7_ZEE, K7_ZEE, K7_ACC)),
+         (K7_ZEE, K7_ACC)),
         ("render_grids_delta", legacy.render_grids_delta, 3, 4, K7_DELTA))
     zero = S.make_pose(torch.zeros(3, device="cuda"), FOCAL, BASELINE)
     for name, fn, grids, c, replaces in cases:
@@ -638,7 +747,7 @@ def grid_renderer_phases(rows):
             row["path"] = (f"{name} over {n} poses of a camera move, "
                            f"{grids} x {SIZE}^2 points, C={c}")
         log(f"{label}: entry point bit-equal to the plain render, overflow "
-            f"false, 5 launches a call, {n} calls driven")
+            f"false, 4 launches a call, {n} calls driven")
 
 
 def fill_variant_phase(rows):
@@ -696,11 +805,13 @@ def fill_variant_phase(rows):
             raise AssertionError(f"(f) fill {name}: not bit-identical, max "
                                  f"abs diff {err}")
         ms = timed(call, 20)
+        dev = device_ms(call, 20, ("discfill",))
         rows.append({"name": f"discfill/fill_disocclusion_pallas[{name}]",
                      "route": "cuda", "source": FILL_SRC,
                      "replaces": replaces, "count_key": "discfill",
                      "entry": "fill_disocclusion_pallas", "mode": mode,
-                     "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                     "max_abs_err": err, "ms": ms, "device_ms": dev[0],
+                     "device_all_ms": dev[1], "plain_ms": pms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None})
     ms_whole = timed(lambda: D.fill_disocclusion(render[None], depth[None],
@@ -912,17 +1023,16 @@ def autozoom_phase(rows, size: int = SIZE, small: int = 256, grid: int = 16,
         su, sv, ok, cam_shifts = candidate_shifts(
             window, 1.25, size / 10.0, scene["anchor"], size, size, camera,
             grid, device)
-        xyz, payload, valid = flat_cloud(scene["unaltered_points"],
-                                         scene["image"])
+        xyz, payload = flat_cloud(scene["unaltered_points"], scene["image"])
         best = int(np.argmin(
             np.abs(su - (chosen.center_u - window.center_u))
             + np.abs(sv - (chosen.center_v - window.center_v))))
         inside = np.flatnonzero(ok)
         for i in (int(inside[0]), int(inside[-1])):
-            splat_compare(f"(i) candidate {i}", xyz, payload, valid,
+            splat_compare(f"(i) candidate {i}", xyz, payload, None,
                           make_pose(cam_shifts[i], camera.focal,
                                     camera.baseline), size, size)
-        splat_phase(f"(i) chosen candidate {best}", xyz, payload, valid,
+        splat_phase(f"(i) chosen candidate {best}", xyz, payload, None,
                     make_pose(cam_shifts[best], camera.focal,
                               camera.baseline), K1, rows, entry="autozoom")
 

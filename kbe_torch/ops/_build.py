@@ -31,8 +31,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # source -> (extra nvcc flags, {C entry: (argtypes, restype)})
 SOURCES = {
     "splat": (["-fmad=false"], {
-        "kbe_splat_zee": ([_P, _P, _P, _I, _I, _I, _P, _P], _I),
-        "kbe_splat_degrid": ([_P, _I, _I, _P, _P], _I),
+        "kbe_splat_front": ([_P] * 3 + [_I] * 3 + [_P] * 4, _I),
         "kbe_splat_route": ([_P] * 4 + [_I] * 3 + [_P] * 3, _I),
         "kbe_splat_sum": ([_P] * 5 + [_I] * 4 + [_P] * 2, _I),
     }),

@@ -18,20 +18,25 @@ passes of the spec, four kernels in ``csrc/splat.cu``:
               the CPU (``count`` and ``place`` are one kernel,
               ``splat_route``).
 
+On the card the front half is one call of three kernels: ``splat_fill``
+(the z-buffer, and the count pass's counts), ``splat_zee`` and
+``splat_degrid``.
+
 ``render_grids`` is the shared body of the grid-cloud entry points of
 ``splat_routed``, ``splat_banded`` and ``legacy``: the TPU package has a
 kernel generation behind each, all computing this one function.
 
 The wrappers below take the plain path only for CPU tensors; a CUDA tensor
 launches the kernel or raises. Each wrapper counts its launches in
-``LAUNCHES``, keyed ``"<pass>/c<C>"``: a render on the card launches
-``zee``, ``degrid``, ``count``, ``place`` and ``sum`` once each.
+``LAUNCHES``, keyed ``"<pass>/c<C>"``: a render on the card calls
+``front`` (its three kernels), ``count``, ``place`` and ``sum`` once each.
 
 The pose is a (5,) f32 tensor ``(sx, sy, sz, focal, focal * baseline)`` on
 the points' device: every pass adds the shift to the points itself, so the
 frame loop passes the pose-invariant cloud (x, y pre-scaled by z/(z+1e-7)
 once per video, as ``apply_shift`` scales them) and each point's position
-is one f32 add, as in the spec.
+is one f32 add, as in the spec. The mask ``valid`` (N,) may be None: every
+point is valid, and no mask is read.
 
 The kernels never drop a point. Every pass is exact: the card's render
 equals the plain version's on the CPU bit for bit, and is the same from
@@ -43,16 +48,12 @@ from __future__ import annotations
 import collections
 from typing import NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
 from kbe_torch.ops import _build
 from kbe_torch.ops.geometry import project_points, splat_error, true_div
 
 _ZFAR = 1000000.0
-# the z-buffer's initial value: the order-preserving int encoding of 1e6
-# (a positive float encodes as its own bits)
-_ZFAR_KEY = int(np.float32(_ZFAR).view(np.int32))
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -69,7 +70,7 @@ def _project(xyz, valid, pose, height: int, width: int):
     u, v, z_ok = project_points(shifted, height, width, pose[3])
     # pose[4] is focal * baseline, already rounded once to f32
     err = splat_error(shifted[:, 2], pose[4], 1.0)
-    return u, v, err, z_ok & (valid > 0.0)
+    return u, v, err, z_ok if valid is None else z_ok & (valid > 0.0)
 
 
 def _neighbor_weights(u, v):
@@ -166,8 +167,9 @@ def _check_inputs(xyz, valid, pose, payload=None):
         if t.device != xyz.device:
             raise ValueError(f"{name} is on {t.device}, xyz on {xyz.device}")
     n = xyz.shape[0]
-    if xyz.shape != (n, 3) or valid.shape != (n,) or pose.shape != (5,):
-        raise ValueError("expected xyz (N, 3), valid (N,), pose (5,)")
+    if (xyz.shape != (n, 3) or pose.shape != (5,)
+            or (valid is not None and valid.shape != (n,))):
+        raise ValueError("expected xyz (N, 3), valid (N,) or None, pose (5,)")
     if n > _MAX_POINTS:
         raise ValueError(f"{n} points: the entry ids 4 i + k need N < 2^30")
     if payload is not None:
@@ -186,9 +188,10 @@ def _check_zee(zee, height: int, width: int) -> None:
 
 def _check_counts(counts, height: int, width: int) -> None:
     if (not counts.is_cuda or counts.dtype != torch.int32
-            or counts.shape != (height * width,)):
-        raise ValueError("expected the (H*W,) int32 CUDA counts of "
-                         "count_cuda")
+            or counts.shape != (height * width,)
+            or not counts.is_contiguous()):
+        raise ValueError("expected the contiguous (H*W,) int32 CUDA counts "
+                         "of count_cuda")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -205,36 +208,32 @@ _MAX_CHANNELS = 1024
 # them in a row; the public wrappers below check their own inputs.
 
 
-def _zee(lib, stream, xyz, valid, pose, height, width, c):
-    zee = torch.full((height * width,), _ZFAR_KEY, dtype=torch.int32,
-                     device=xyz.device)
-    _count("zee", c)
-    _build.check(lib.kbe_splat_zee(
-        xyz.data_ptr(), valid.data_ptr(), pose.data_ptr(), xyz.shape[0],
-        height, width, zee.data_ptr(), stream), "splat_zee")
-    return zee
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
-def _degrid(lib, stream, keys, height, width, c):
-    out = torch.empty((height, width), dtype=torch.float32,
-                      device=keys.device)
-    _count("degrid", c)
-    _build.check(lib.kbe_splat_degrid(keys.data_ptr(), height, width,
-                                      out.data_ptr(), stream), "splat_degrid")
-    return out
+def _front(lib, stream, xyz, valid, pose, height, width, c, counts=None):
+    keys = torch.empty((height * width,), dtype=torch.int32,
+                       device=xyz.device)
+    zee = torch.empty((height, width), dtype=torch.float32, device=xyz.device)
+    _count("front", c)
+    _build.check(lib.kbe_splat_front(
+        xyz.data_ptr(), _ptr(valid), pose.data_ptr(), xyz.shape[0], height,
+        width, keys.data_ptr(), zee.data_ptr(), _ptr(counts), stream),
+        "splat_front")
+    return keys, zee
 
 
 def _route(lib, stream, xyz, valid, pose, zee, height, width, cursor, keys):
     _build.check(lib.kbe_splat_route(
-        xyz.data_ptr(), valid.data_ptr(), pose.data_ptr(), zee.data_ptr(),
-        xyz.shape[0], height, width, cursor.data_ptr(),
-        None if keys is None else keys.data_ptr(), stream),
+        xyz.data_ptr(), _ptr(valid), pose.data_ptr(), zee.data_ptr(),
+        xyz.shape[0], height, width, cursor.data_ptr(), _ptr(keys), stream),
         "splat_route")
 
 
-def _count_entries(lib, stream, xyz, valid, pose, zee, height, width, c):
-    counts = torch.zeros((height * width,), dtype=torch.int32,
-                         device=xyz.device)
+def _count_entries(lib, stream, xyz, valid, pose, zee, height, width, c,
+                   counts):
+    """``counts``: (H*W,) int32 zeros, which gain the entries."""
     _count("count", c)
     _route(lib, stream, xyz, valid, pose, zee, height, width, counts, None)
     return counts
@@ -267,34 +266,30 @@ def _sum(lib, stream, payload, counts, starts, keys, height, width,
 
 
 def _accumulate(lib, stream, xyz, valid, payload, pose, zee, height, width,
-                normalize):
+                normalize, counts):
     c = payload.shape[1]
     counts = _count_entries(lib, stream, xyz, valid, pose, zee, height,
-                            width, c)
+                            width, c, counts)
     starts, keys = _place(lib, stream, xyz, valid, pose, zee, counts, height,
                           width, c)
     return _sum(lib, stream, payload, counts, starts, keys, height, width,
                 normalize)
 
 
-def zee_cuda(xyz, valid, pose, height: int, width: int,
-             c: int) -> torch.Tensor:
-    """Kernel ``splat_zee``: the (H*W,) int32 key-encoded z-buffer.
-    ``c`` only names the launch in ``LAUNCHES``."""
+def front_cuda(xyz, valid, pose, height: int, width: int, c: int,
+               counts: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernels ``splat_fill``, ``splat_zee`` and ``splat_degrid``, one
+    call: the front half. Returns the (H*W,) int32 key-encoded z-buffer
+    (``zee_plain`` once decoded) and its (H, W) f32 degridded copy
+    (``degrid_plain`` of it). ``valid`` may be None. ``counts``, an
+    (H*W,) int32 CUDA buffer, is zeroed for the count pass. ``c`` only
+    names the call in ``LAUNCHES``."""
     _check_inputs(xyz, valid, pose)
-    return _zee(_build.lib("splat"), _stream(xyz), xyz, valid, pose, height,
-                width, c)
-
-
-def degrid_cuda(zee_keys: torch.Tensor, height: int, width: int,
-                c: int) -> torch.Tensor:
-    """Kernel ``splat_degrid``: key-encoded (H*W,) int32 -> (H, W) f32."""
-    if (not zee_keys.is_cuda or zee_keys.dtype != torch.int32
-            or zee_keys.shape != (height * width,)
-            or not zee_keys.is_contiguous()):
-        raise ValueError("expected a contiguous (H*W,) int32 CUDA z-buffer")
-    return _degrid(_build.lib("splat"), _stream(zee_keys), zee_keys, height,
-                   width, c)
+    if counts is not None:
+        _check_counts(counts, height, width)
+    return _front(_build.lib("splat"), _stream(xyz), xyz, valid, pose,
+                  height, width, c, counts)
 
 
 def count_cuda(xyz, valid, pose, zee, height: int, width: int,
@@ -304,8 +299,10 @@ def count_cuda(xyz, valid, pose, zee, height: int, width: int,
     against the degridded ``zee``."""
     _check_inputs(xyz, valid, pose)
     _check_zee(zee, height, width)
+    counts = torch.zeros((height * width,), dtype=torch.int32,
+                         device=xyz.device)
     return _count_entries(_build.lib("splat"), _stream(xyz), xyz, valid,
-                          pose, zee, height, width, c)
+                          pose, zee, height, width, c, counts)
 
 
 def place_cuda(xyz, valid, pose, zee, counts: torch.Tensor, height: int,
@@ -349,8 +346,10 @@ def accumulate_cuda(xyz, valid, payload, pose, zee, height: int,
     does with ``normalize``), bit for bit."""
     _check_inputs(xyz, valid, pose, payload)
     _check_zee(zee, height, width)
+    counts = torch.zeros((height * width,), dtype=torch.int32,
+                         device=xyz.device)
     return _accumulate(_build.lib("splat"), _stream(xyz), xyz, valid,
-                       payload, pose, zee, height, width, normalize)
+                       payload, pose, zee, height, width, normalize, counts)
 
 
 def decode_keys(keys: torch.Tensor) -> torch.Tensor:
@@ -365,18 +364,21 @@ def splat(xyz, payload, valid, pose, height: int,
           width: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render one cloud at one pose.
 
-    ``xyz`` (N, 3), ``payload`` (N, C), ``valid`` (N,), ``pose`` (5,), all
-    f32 on one device. Returns (rendered (H, W, C), existing (H, W, 1)).
+    ``xyz`` (N, 3), ``payload`` (N, C), ``valid`` (N,) or None, ``pose``
+    (5,), all f32 on one device. Returns (rendered (H, W, C), existing (H,
+    W, 1)).
     """
     c = payload.shape[1]
     if xyz.is_cuda:
         _check_inputs(xyz, valid, pose, payload)
         lib, stream = _build.lib("splat"), _stream(xyz)
-        keys = _zee(lib, stream, xyz, valid, pose, height, width, c)
-        zee = _degrid(lib, stream, keys, height, width, c)
+        counts = torch.empty((height * width,), dtype=torch.int32,
+                             device=xyz.device)
+        _, zee = _front(lib, stream, xyz, valid, pose, height, width, c,
+                        counts)
         # the sum pass divides as the line below does, bit for bit
         acc = _accumulate(lib, stream, xyz, valid, payload, pose, zee,
-                          height, width, True)
+                          height, width, True, counts)
         rendered = acc[:, :c]
     else:
         zee = degrid_plain(zee_plain(xyz, valid, pose, height, width))
@@ -399,13 +401,11 @@ def render_pointcloud(xyz: torch.Tensor, data: torch.Tensor, height: int,
                       valid: Optional[torch.Tensor] = None):
     """``kbe_tpu.ops.splat.render_pointcloud``: (B, N, 3) points, (B, N, C)
     payload, optional (B, N) mask -> ((B, H, W, C), (B, H, W, 1))."""
-    if valid is None:
-        valid = torch.ones(xyz.shape[:2], dtype=torch.float32,
-                           device=xyz.device)
     zero = torch.zeros(3, dtype=torch.float32, device=xyz.device)
     pose = make_pose(zero, focal, baseline)
     outs = [splat(xyz[b].float().contiguous(), data[b].float().contiguous(),
-                  valid[b].float().contiguous(), pose, height, width)
+                  None if valid is None else valid[b].float().contiguous(),
+                  pose, height, width)
             for b in range(xyz.shape[0])]
     return (torch.stack([o[0] for o in outs]),
             torch.stack([o[1] for o in outs]))
@@ -420,22 +420,19 @@ def render_grids(xyz: torch.Tensor, data: torch.Tensor, height: int,
     ``xyz`` (G, H, W, 3), ``data`` (G, H, W, C), ``valid`` (G, H, W) or None
     -> (rendered (1, H, W, C), existing (1, H, W, 1)). The cloud is
     flattened to contiguous f32 (N, 3), (N, C), (N,) and goes through
-    ``splat``: the three kernels for CUDA tensors."""
+    ``splat``: the kernels for CUDA tensors."""
     if xyz.ndim != 4 or xyz.shape[-1] != 3:
         raise ValueError("expected xyz (G, H, W, 3)")
     if data.ndim != 4 or data.shape[:3] != xyz.shape[:3]:
         raise ValueError("expected data (G, H, W, C) on xyz's grid")
-    if valid is None:
-        valid = torch.ones(xyz.shape[:3], dtype=torch.float32,
-                           device=xyz.device)
-    elif valid.shape != xyz.shape[:3]:
+    if valid is not None and valid.shape != xyz.shape[:3]:
         raise ValueError("expected valid (G, H, W)")
     c = data.shape[-1]
     zero = torch.zeros(3, dtype=torch.float32, device=xyz.device)
     rendered, existing = splat(
         xyz.float().reshape(-1, 3).contiguous(),
         data.float().reshape(-1, c).contiguous(),
-        valid.float().reshape(-1).contiguous(),
+        None if valid is None else valid.float().reshape(-1).contiguous(),
         make_pose(zero, focal, baseline), height, width)
     return rendered[None], existing[None]
 
@@ -460,28 +457,40 @@ class PosedScene(NamedTuple):
     """Pose-invariant render state of a grid cloud, made once per video.
 
     ``xyz`` (N, 3) with x, y pre-scaled by z/(z+1e-7), so ``x + sx`` equals
-    ``apply_shift``; ``payload`` (N, C); ``valid`` (N,) 0/1."""
+    ``apply_shift``; ``payload`` (N, C); ``valid`` (N,) 0/1: the whole
+    grids, flattened. ``kept_xyz`` and ``kept_payload``: the valid points
+    alone, in their order, which ``render_posed`` splats with no mask."""
 
     xyz: torch.Tensor
     payload: torch.Tensor
     valid: torch.Tensor
+    kept_xyz: torch.Tensor
+    kept_payload: torch.Tensor
 
 
 def prepare_scene(xyz: torch.Tensor, data: torch.Tensor,
                   valid: torch.Tensor) -> PosedScene:
-    """``xyz`` (G, H, W, 3), ``data`` (G, H, W, C), ``valid`` (G, H, W)."""
+    """``xyz`` (G, H, W, 3), ``data`` (G, H, W, C), ``valid`` (G, H, W).
+
+    Dropping the invalid points keeps the render bit for bit: they add no
+    entry, and the kept entries keep their ascending order, so each
+    pixel's sum adds the same values in the same order."""
     z = xyz[..., 2].float()
     scale = true_div(z, z + 1e-7)
     pts = torch.stack([xyz[..., 0].float() * scale,
                        xyz[..., 1].float() * scale, z], dim=-1)
     c = data.shape[-1]
-    return PosedScene(pts.reshape(-1, 3).contiguous(),
-                      data.float().reshape(-1, c).contiguous(),
-                      (valid > 0.0).float().reshape(-1).contiguous())
+    pts = pts.reshape(-1, 3).contiguous()
+    payload = data.float().reshape(-1, c).contiguous()
+    valid = (valid > 0.0).float().reshape(-1).contiguous()
+    kept = torch.nonzero(valid > 0.0)[:, 0]
+    return PosedScene(pts, payload, valid, pts[kept].contiguous(),
+                      payload[kept].contiguous())
 
 
 def render_posed(scene: PosedScene, pose: torch.Tensor, height: int,
                  width: int):
     """Render the scene at ``pose`` (see ``make_pose``): what the spec gives
     for ``apply_shift(xyz, shift)`` at that focal."""
-    return splat(scene.xyz, scene.payload, scene.valid, pose, height, width)
+    return splat(scene.kept_xyz, scene.kept_payload, None, pose, height,
+                 width)

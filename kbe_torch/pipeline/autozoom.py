@@ -51,11 +51,11 @@ def candidate_shifts(window: ZoomWindow, zoom_factor: float,
 
 def flat_cloud(points: torch.Tensor, image: torch.Tensor):
     """The raw cloud as the splat takes it: contiguous f32 ``(N, 3)``
-    points, ``(N, C)`` payload and an all-ones ``(N,)`` mask."""
+    points and ``(N, C)`` payload. Every point is valid: the splat reads no
+    mask."""
     xyz = points.reshape(-1, 3).float().contiguous()
     payload = image.reshape(-1, image.shape[-1]).float().contiguous()
-    valid = torch.ones(xyz.shape[0], dtype=torch.float32, device=xyz.device)
-    return xyz, payload, valid
+    return xyz, payload
 
 
 @torch.inference_mode()
@@ -74,11 +74,11 @@ def autozoom(points: torch.Tensor, image: torch.Tensor, window: ZoomWindow,
     dev = points.device
     su, sv, ok, cam_shifts = candidate_shifts(
         window, zoom_factor, shift_range, anchor, h, w, camera, grid, dev)
-    xyz, payload, valid = flat_cloud(points, image)
+    xyz, payload = flat_cloud(points, image)
     scores = []
     for i in range(cam_shifts.shape[0]):
         pose = make_pose(cam_shifts[i], camera.focal, camera.baseline)
-        _, existing = splat(xyz, payload, valid, pose, h, w)
+        _, existing = splat(xyz, payload, None, pose, h, w)
         scores.append((existing > 0.0).float().sum())
     scores = torch.where(torch.as_tensor(ok, device=dev),
                          torch.stack(scores), -1.0)

@@ -2,8 +2,9 @@
 
 Marked ``gpu``: each test skips where there is no CUDA device. Run on the
 card with ``KBE_TESTS_ALLOW_TPU=1 python -m pytest tests/test_torch_cuda.py
--q``. Every kernel is exact: the zee and degrid passes and the fill are
-bit-identical to the plain versions on the card, and the accumulation and
+-q``. Every kernel is exact: the front half (the z-buffer's keys and its
+degridded copy) and the fill are bit-identical to the plain versions on
+the card, and the accumulation and
 the render to the plain version on the CPU (whose ``index_add_`` sums in
 ascending entry order, the order the sum pass reproduces; on the card
 ``index_add_`` uses atomics). Two renders of one cloud are bit-equal.
@@ -42,10 +43,9 @@ def test_splat_kernels_match_plain(cuda, c):
     xyz, payload, valid = _cloud(cuda, h, w, c, seed=c)
     pose = S.make_pose(torch.tensor([3.5, -2.0, -10.0], device=cuda), 128.0,
                        60.0)
-    keys = S.zee_cuda(xyz, valid, pose, h, w, c)
-    zee = S.decode_keys(keys).reshape(h, w)
-    assert torch.equal(zee, S.zee_plain(xyz, valid, pose, h, w))
-    deg = S.degrid_cuda(keys, h, w, c)
+    keys, deg = S.front_cuda(xyz, valid, pose, h, w, c)
+    zee = S.zee_plain(xyz, valid, pose, h, w)
+    assert torch.equal(S.decode_keys(keys).reshape(h, w), zee)
     assert torch.equal(deg, S.degrid_plain(zee))
     acc = S.accumulate_cuda(xyz, valid, payload, pose, deg, h, w)
     want = _plain_on_cpu(xyz, valid, payload, pose, deg, h, w)
@@ -54,6 +54,74 @@ def test_splat_kernels_match_plain(cuda, c):
     assert torch.equal(rendered.cpu(), (want[:, :c] / (want[:, c:] + 1e-7))
                        .reshape(h, w, c))
     assert torch.equal(existing.cpu(), want[:, c:].reshape(h, w, 1))
+
+
+def _front_case(cuda, case):
+    """(xyz, valid, h, w) of a front-half case."""
+    if case == "odd":       # tile-ragged, W % 4 != 0: no 16 B rows
+        h, w = 37, 1029
+        xyz, _, valid = _cloud(cuda, h, w, 1, seed=21)
+        xyz[:64, 0] = 0.0    # a near patch with negative keys in the image
+        xyz[:64, 1] = 0.0
+        xyz[:64, 2] = 0.005  # f*b/z = 1.5e6
+        return xyz, valid, h, w
+    if case == "empty":
+        return (torch.zeros(0, 3, device=cuda), torch.zeros(0, device=cuda),
+                48, 64)
+    if case == "all_invalid":
+        xyz, _, valid = _cloud(cuda, 48, 64, 1, seed=22)
+        return xyz, torch.zeros_like(valid), 48, 64
+    if case == "no_mask":
+        xyz, _, _ = _cloud(cuda, 33, 260, 1, seed=23)
+        return xyz, None, 33, 260
+    # chip_smoke.py's pathological pile, at 256^2: a quarter of the points
+    # on one pixel
+    h = w = 256
+    xyz, _, valid = _cloud(cuda, h, w, 1, seed=24)
+    g = torch.Generator().manual_seed(25)
+    pile = torch.randperm(h * w, generator=g)[:h * w // 4].to(cuda)
+    z = 100.0 + torch.rand(len(pile), generator=g).to(cuda)
+    xyz[pile, 0] = (70.5 - w / 2 + 0.5) * z / 128.0
+    xyz[pile, 1] = (40.5 - h / 2 + 0.5) * z / 128.0
+    xyz[pile, 2] = z
+    return xyz, valid, h, w
+
+
+@pytest.mark.parametrize("case", ["odd", "empty", "all_invalid", "no_mask",
+                                  "pathological"])
+def test_front_half_matches_plain(cuda, case):
+    """``splat_front``'s keys and degridded buffer against ``zee_plain`` and
+    ``degrid_plain``, the counts zeroed, one launch; and the whole render
+    against the CPU's plain one."""
+    xyz, valid, h, w = _front_case(cuda, case)
+    pose = S.make_pose(torch.zeros(3, device=cuda), 128.0, 60.0)
+    counts = torch.full((h * w,), 7, dtype=torch.int32, device=cuda)
+    S.LAUNCHES.clear()
+    keys, deg = S.front_cuda(xyz, valid, pose, h, w, 4, counts=counts)
+    assert dict(S.LAUNCHES) == {"front/c4": 1}
+    zee = S.zee_plain(xyz, valid, pose, h, w)
+    assert torch.equal(S.decode_keys(keys).reshape(h, w), zee)
+    assert torch.equal(deg, S.degrid_plain(zee))
+    assert not counts.any()
+    if case == "odd":
+        assert (zee < 0).any()
+    if case in ("empty", "all_invalid"):
+        assert bool((zee == 1e6).all())
+    payload = torch.rand(xyz.shape[0], 4, device=cuda)
+    got = S.splat(xyz, payload, valid, pose, h, w)
+    want = S.splat(xyz.cpu(), payload.cpu(),
+                   None if valid is None else valid.cpu(), pose.cpu(), h, w)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+def test_front_half_refuses_bad_inputs(cuda):
+    xyz, _, valid = _cloud(cuda, 8, 8, 1, seed=26)
+    pose = S.make_pose(torch.zeros(3, device=cuda), 128.0, 60.0)
+    with pytest.raises(ValueError, match="valid"):
+        S.front_cuda(xyz, valid[:-1], pose, 8, 8, 4)
+    with pytest.raises(ValueError, match="counts"):
+        S.front_cuda(xyz, valid, pose, 8, 8, 4,
+                     counts=torch.zeros(63, dtype=torch.int32, device=cuda))
 
 
 def _plain_on_cpu(xyz, valid, payload, pose, zee, h, w):
@@ -96,7 +164,7 @@ def test_long_segments_match_plain(cuda, c, spots, least, most):
     xyz[pile, 1] = (v - h / 2 + 0.5) * z / 128.0
     xyz[pile, 2] = z
     pose = S.make_pose(torch.zeros(3, device=cuda), 128.0, 60.0)
-    deg = S.degrid_cuda(S.zee_cuda(xyz, valid, pose, h, w, c), h, w, c)
+    _, deg = S.front_cuda(xyz, valid, pose, h, w, c)
     longest = int(S.count_cuda(xyz, valid, pose, deg, h, w, c).max())
     assert least <= longest <= most
     for normalize in (False, True):
@@ -174,7 +242,7 @@ def _entry_points():
 @pytest.mark.parametrize("grids,c", [(3, 4), (1, 68)])
 def test_grid_entry_point_runs_the_kernels(cuda, name, grids, c):
     """Each ``render_grids_*`` on CUDA tensors against its own plain route
-    (the same call on CPU tensors) at 256^2, and its five launches."""
+    (the same call on CPU tensors) at 256^2, and its four launches."""
     h = w = 256
     fn = _entry_points()[name]
     xyz, data, valid = _grids(h, w, grids, c, seed=c + grids)
@@ -183,7 +251,7 @@ def test_grid_entry_point_runs_the_kernels(cuda, name, grids, c):
     got = fn(xyz.to(cuda), data.to(cuda), h, w, 128.0, 60.0,
              valid=valid.to(cuda))
     assert dict(S.LAUNCHES) == {f"{k}/c{c}": 1 for k in (
-        "zee", "degrid", "count", "place", "sum")}
+        "front", "count", "place", "sum")}
     assert len(got) == len(want)
     for g, wnt in zip(got[:2], want[:2]):
         assert torch.equal(g.cpu(), wnt)
@@ -229,5 +297,5 @@ def test_autozoom_on_the_card_picks_the_cpu_window(cuda):
     got = autozoom(points.to(cuda), image.to(cuda), window, 1.25, 24.0,
                    depth_range(depth.to(cuda), 32), cam, grid=4)
     assert dict(S.LAUNCHES) == {f"{k}/c3": 16 for k in (
-        "zee", "degrid", "count", "place", "sum")}
+        "front", "count", "place", "sum")}
     assert got == want

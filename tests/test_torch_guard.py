@@ -81,6 +81,6 @@ def test_every_inference_mode_runs_on_the_cpu(effect_kw, model_kw):
 def test_kernel_wrappers_refuse_cpu_tensors():
     xyz = torch.zeros(8, 3)
     with pytest.raises(ValueError):
-        S.zee_cuda(xyz, torch.ones(8), torch.zeros(5), 4, 4, 4)
+        S.front_cuda(xyz, torch.ones(8), torch.zeros(5), 4, 4, 4)
     with pytest.raises(ValueError):
         D.fill_cuda(torch.zeros(4, 4, 4), torch.zeros(4, 4, 1), 16)

@@ -141,7 +141,14 @@ def test_decode_keys_inverts_the_order_preserving_encoding():
     assert np.all(np.diff(keys[[0, 1, 3, 4, 5, 6]]) > 0)
     back = S.decode_keys(torch.as_tensor(keys)).numpy()
     np.testing.assert_array_equal(back.view(np.int32), bits)
-    assert S._ZFAR_KEY == int(np.float32(1e6).view(np.int32))
+    # the kernels' initial z-buffer key is that of 1e6, its own bits
+    import pathlib
+    import re
+
+    src = (pathlib.Path(S.__file__).parent / "csrc" / "splat.cu").read_text()
+    far = int(re.search(r"constexpr int kZFarKey = (0x[0-9a-f]+);", src)
+              .group(1), 16)
+    assert far == int(np.float32(1e6).view(np.int32))
 
 
 # ------------------------------------------- the order the card reproduces
@@ -237,3 +244,124 @@ def test_count_scan_place_sort_sum_equals_plain(c):
     want_r, want_e = S.splat(xyz, payload, valid, pose, h, w)
     assert torch.equal(got_r.reshape(h, w, c), want_r)
     assert torch.equal(torch.as_tensor(got[:, c:]).reshape(h, w, 1), want_e)
+
+
+# ----------------------------------------------------- the card's front half
+
+def test_valid_only_scene_renders_as_the_full_scene():
+    """``render_posed`` splats the scene's valid points alone, with no
+    mask: bit-equal to the whole grids with their mask, at every pose,
+    because the kept entries keep their ascending order."""
+    h, w, focal, baseline = 24, 32, 32.0, 20.0
+    xyz, data, valid = _cloud(h, w, 3, 4, 11, focal)
+    scene = S.prepare_scene(torch.as_tensor(xyz), torch.as_tensor(data),
+                            torch.as_tensor(valid))
+    assert scene.kept_xyz.shape[0] == int(valid.sum()) < valid.size
+    assert torch.equal(scene.kept_xyz, scene.xyz[scene.valid > 0])
+    holes = []
+    for shift in ((0.0, 0.0, 0.0), (3.5, -2.25, 0.0), (-6.0, 4.0, 18.0)):
+        pose = S.make_pose(torch.tensor(shift), focal, baseline)
+        got = S.render_posed(scene, pose, h, w)
+        want = S.splat(scene.xyz, scene.payload, scene.valid, pose, h, w)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        holes.append(bool((got[1] == 0).any()))
+    assert any(holes)
+
+
+def _front_constants():
+    """The degrid's tile shape, read from the kernel's source."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(S.__file__).parent / "csrc" / "splat.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+)", src).group(1))
+
+    assert "kTileRows = kWarpRows * kFrontThreads / 32" in src
+    assert "kTilePitch = kTileCols + 8" in src
+    rows = const("kWarpRows") * const("kFrontThreads") // 32
+    return rows, const("kTileCols"), const("kTileCols") + 8
+
+
+def _encode(zee):
+    bits = np.asarray(zee, np.float32).view(np.int32)
+    return np.where(bits < 0, bits ^ 0x7fffffff, bits).astype(np.int32)
+
+
+def _degrid_tiled(keys, h, w):
+    """``splat_front``'s degrid phase in numpy: per tile, the tile's rows
+    and the rows above and below it decoded into a pitch-wide buffer (the
+    left halo at column 3, the tile at 4.., the right halo after it), +inf
+    outside the image; each pixel from that buffer alone, in the kernel's
+    order of pairs and adds."""
+    rows, cols, pitch = _front_constants()
+    zee = np.where(keys < 0, keys ^ 0x7fffffff, keys).astype(
+        np.int32).view(np.float32).reshape(h, w)
+    out = np.full((h, w), np.nan, np.float32)
+    one_f = np.float32(1.0)
+    for y0 in range(0, h, rows):
+        for x0 in range(0, w, cols):
+            tile = np.full((rows + 2, pitch), np.inf, np.float32)
+            for r in range(rows + 2):
+                y = y0 - 1 + r
+                if not 0 <= y < h:
+                    continue
+                for c in range(3, 5 + cols):
+                    x = x0 + c - 4
+                    if 0 <= x < w:
+                        tile[r, c] = zee[y, x]
+            for r in range(rows):
+                for c in range(4, 4 + cols):
+                    y, x = y0 + r, x0 + c - 4
+                    if y >= h or x >= w:
+                        continue
+                    m = tile[r:r + 3, c - 1:c + 2]
+                    center = m[1, 1]
+                    total = count = np.float32(0.0)
+                    for one, two in ((m[1, 2], m[1, 0]), (m[2, 1], m[0, 1]),
+                                     (m[2, 2], m[0, 0]), (m[0, 2], m[2, 0])):
+                        if center >= one + one_f and center >= two + one_f:
+                            total = np.float32(total + np.float32(one + two))
+                            count = np.float32(count + np.float32(2.0))
+                    out[y, x] = (min(center, np.float32(
+                        total / max(count, one_f))) if count > 0 else center)
+    assert not np.isnan(out).any()
+    return out
+
+
+@pytest.mark.parametrize("h,w", [(37, 203), (1, 300), (45, 1), (20, 256)])
+def test_tiled_degrid_equals_degrid_plain(h, w):
+    """Tile-ragged sizes, 1-pixel-wide and -tall images, negative keys,
+    holes (1e6) and exact ties of the +1 test."""
+    rng = np.random.default_rng(h * 1000 + w)
+    zee = rng.uniform(100.0, 200.0, (h, w)).astype(np.float32)
+    zee[:, ::7] = np.float32(151.0)   # exact ties of the +1 test
+    zee[::5, :] = np.float32(150.0)
+    zee[rng.uniform(size=(h, w)) < 0.3] = 1e6
+    neg = rng.uniform(size=(h, w)) < 0.1
+    zee[neg] = rng.uniform(-3e4, -1.0, neg.sum())
+    assert (zee < 0).any()
+    want = S.degrid_plain(torch.as_tensor(zee)).numpy()
+    got = _degrid_tiled(_encode(zee), h, w)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert (got != zee).any()
+
+
+def test_tiled_degrid_of_a_rendered_zbuffer():
+    """The z-buffer of a posed cloud with a near patch of negative keys."""
+    h, w, focal, baseline = 40, 136, 48.0, 100.0
+    xyz, _, valid = _cloud(h, w, 2, 3, 12, focal)
+    pts = xyz.reshape(-1, 3).copy()
+    # a near patch in the image: f*b/(z+1e-7) > 1e6, negative keys
+    z = np.float32(0.003)
+    pts[:64, 0] = (np.arange(64) % 16 + 60.2 - w / 2 + 0.5) * z / focal
+    pts[:64, 1] = (np.arange(64) // 16 + 10.2 - h / 2 + 0.5) * z / focal
+    pts[:64, 2] = z
+    pose = S.make_pose(torch.zeros(3), focal, baseline)
+    zee = S.zee_plain(torch.as_tensor(pts), torch.as_tensor(valid.reshape(-1)),
+                      pose, h, w)
+    assert (zee < 0).any() and (zee == 1e6).any()
+    want = S.degrid_plain(zee).numpy()
+    got = _degrid_tiled(_encode(zee.numpy()), h, w)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))

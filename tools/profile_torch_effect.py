@@ -11,8 +11,9 @@ CUDA activities, the front end and the pose loop each under a profiler of
 its own. Prints the wall time of the profiled run split into front end
 and pose loop (host clock around ``torch.cuda.synchronize``), the kernel
 launches of the run and of the loop alone (per frame), the device time of
-the top kernels, and the device's busy and idle shares (busy = the union
-of kernel intervals on the device timeline).
+the top kernels and of every hand-written one (``splat_*``, ``discfill``),
+and the device's busy and idle shares (busy = the union of kernel
+intervals on the device timeline).
 ``--mode`` picks one of the inference modes that ``chip_smoke.py`` drives
 (dolly, 2d, partial_inpainting, routed+xla, ...), by the same table.
 """
@@ -123,10 +124,15 @@ def main() -> int:
         name = e.name if len(e.name) <= 70 else e.name[:67] + "..."
         t, n = totals.get(name, (0.0, 0))
         totals[name] = (t + e.time_range.elapsed_us(), n + 1)
+    ranked = sorted(totals.items(), key=lambda kv: -kv[1][0])
     print(f"{'device ms':>10} {'share':>6} {'calls':>6}  kernel")
-    for name, (t, n) in sorted(totals.items(), key=lambda kv: -kv[1][0])[
-            :args.top]:
+    for name, (t, n) in ranked[:args.top]:
         print(f"{t / 1e3:10.3f} {t / busy:6.3f} {n:6d}  {name}")
+    print("hand-written kernels, device ms over the run (mean us a call):")
+    for name, (t, n) in ranked:
+        if "splat_" in name or "discfill" in name:
+            print(f"{t / 1e3:10.3f} {t / busy:6.3f} {n:6d}  {name} "
+                  f"({t / n:.3f})")
     return 0
 
 
