@@ -17,8 +17,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      (p) a pathological cloud: 65,536 points of a 1024^2 grid on one pixel;
   4. main path: the 1024^2, 75-frame effect at the production precision mix
      (f32 depth nets, bf16 inpainting nets), seeded random weights; checks
-     the frames and that every kernel ran (77 renders of four splat
-     calls each: front (three kernels), count, place, sum; 75 fills);
+     the frames and that every kernel ran (77 renders of six splat
+     kernels each: the front half's fill, zee and degrid, then count,
+     place and sum; 75 fills);
      prints the
      scene's size and each grid's valid share;
   5. card vs CPU: the default effect, dolly and partial-conv inpainting at
@@ -26,7 +27,7 @@ Phases, in order; any failure raises and the script exits non-zero:
   6. the other entry points and inference modes:
      (e) every grid renderer (``render_grids_banded``, ``_routed`` at C=4
          and C=68, ``_pallas``, ``_delta``) on the card against the plain
-         passes at 1024^2, four launches a call, then driven over the
+         passes at 1024^2, six launches a call, then driven over the
          poses of a move for its launch count;
      (f) ``fill_disocclusion_pallas`` under every phase schedule, with and
          without the ROI, at 8 and 128 steps: bit-identical to the plain
@@ -305,16 +306,28 @@ def splat_compare(label, xyz, payload, valid, pose, h: int, w: int):
     return counts, deg_k, r_k, x_k
 
 
+def zeroed_counts(calls: int, hw: int):
+    """A function that hands out a new (H*W,) int32 buffer of zeros a
+    call, ``calls`` of them made in advance: the counts that ``splat``'s
+    front half zeroes for the count pass, so that a timed accumulation
+    launches no fill a render does not make."""
+    import torch
+
+    pool = iter(torch.zeros((calls, hw), dtype=torch.int32, device="cuda"))
+    return lambda: next(pool)
+
+
 def splat_phase(label, xyz, payload, valid, pose, replaces, rows,
                 entry=None, **extra):
     """Each splat kernel against its plain version on the same inputs, then
     timed. ``replaces`` is one TPU kernel, or one per row (front,
     accumulate); ``entry`` names the entry point in the rows of a path off
     the main one, whose launch counts the caller fills in; ``extra`` keys
-    go into each row. The front row times the launch as ``splat`` makes
+    go into each row. The front row times the call as ``splat`` makes
     it (the counts zeroed too); the accumulate row times the count, place
-    and sum passes together (and each alone beside it); its launches are
-    the sum pass's."""
+    and sum passes together on counts zeroed in advance, as ``splat``
+    hands them on (and each pass alone beside it). A row's launches are
+    its last kernel's, and each of its kernels' are listed beside them."""
     import torch
     from kbe_torch.ops import splat as S
 
@@ -322,13 +335,15 @@ def splat_phase(label, xyz, payload, valid, pose, replaces, rows,
     h = w = SIZE
     counts, deg_k, r_k, x_k = splat_compare(label, xyz, payload, valid, pose,
                                             h, w)
-    buf = torch.empty((h * w,), dtype=torch.int32, device=xyz.device)
+    hw = h * w
+    buf = torch.empty((hw,), dtype=torch.int32, device=xyz.device)
 
     def front():
         return S.front_cuda(xyz, valid, pose, h, w, c, counts=buf)
 
-    def acc():
-        return S.accumulate_cuda(xyz, valid, payload, pose, deg_k, h, w)
+    def acc(zeros):
+        return lambda: S.accumulate_cuda(xyz, valid, payload, pose, deg_k,
+                                         h, w, counts=zeros())
 
     reps, preps = 20, 3
     ms_front = timed(front, reps)
@@ -341,15 +356,18 @@ def splat_phase(label, xyz, payload, valid, pose, replaces, rows,
     dev_front = (sum(dev_phases.values()), sum(front_times.values()))
     pms_front = timed(lambda: S.degrid_plain(S.zee_plain(xyz, valid, pose,
                                                          h, w)), preps)
-    ms_count = timed(lambda: S.count_cuda(xyz, valid, pose, deg_k, h, w, c),
-                     reps)
+    zeros = zeroed_counts(reps + 1, hw)
+    ms_count = timed(lambda: S.count_cuda(xyz, valid, pose, deg_k, h, w, c,
+                                          counts=zeros()), reps)
     ms_place = timed(lambda: S.place_cuda(xyz, valid, pose, deg_k, counts,
                                           h, w, c), reps)
     starts, keys_s = S.place_cuda(xyz, valid, pose, deg_k, counts, h, w, c)
     ms_sum = timed(lambda: S.sum_cuda(payload, counts, starts, keys_s, h, w),
                    reps)
-    ms_acc = timed(acc, reps)
-    dev_acc = device_ms(acc, reps, ("splat_route", "splat_sum"))
+    ms_acc = timed(acc(zeroed_counts(reps + 1, hw)), reps)
+    # device_events: at most three tries of a warm-up and a recorded step
+    dev_acc = device_ms(acc(zeroed_counts(6 * reps, hw)), reps,
+                        ("splat_route", "splat_sum"))
     pms_acc = timed(lambda: S.accumulate_plain(xyz, valid, payload, pose,
                                                deg_k, h, w), preps)
     ms_all = timed(lambda: S.splat(xyz, payload, valid, pose, h, w), reps)
@@ -359,7 +377,6 @@ def splat_phase(label, xyz, payload, valid, pose, replaces, rows,
         f"{ms_count:.4f}, scan+place {ms_place:.4f}, sum {ms_sum:.4f}) whole "
         f"render {ms_all:.4f}; plain ms front {pms_front:.4f} accumulate "
         f"{pms_acc:.4f}")
-    hw = h * w
     live = n if valid is None else int((valid > 0).sum())
     tag = f"c{c}"
     if isinstance(replaces, str):
@@ -369,7 +386,7 @@ def splat_phase(label, xyz, payload, valid, pose, replaces, rows,
     # counts written once each
     front_bytes = (0 if valid is None else 4 * n) + 12 * live + 20 + 3 * hw * 4
     for (kern, key, ms, dev, pms, nbytes, nops), repl in zip((
-            ("front", "front", ms_front, dev_front, pms_front, front_bytes,
+            ("front", "degrid", ms_front, dev_front, pms_front, front_bytes,
              live * 20 + hw * 20),
             ("accumulate", "sum", ms_acc, dev_acc, pms_acc,
              n * (16 + 4 * c) + 20 + hw * 4 + hw * (c + 1) * 4,
@@ -385,6 +402,8 @@ def splat_phase(label, xyz, payload, valid, pose, replaces, rows,
             # the front half's kernels: fill, zee, degrid
             row.update(kernel_device_ms=dev_phases, points=n,
                        valid_points=live, mask=valid is not None,
+                       pass_keys=[f"{k}/{tag}"
+                                  for k in ("fill", "zee", "degrid")],
                        bound_note="fill (keys + counts) + zee (4 B mask a "
                        "point if a mask is passed, 12 B xyz a valid point) "
                        "+ degrid (f32 written)")
@@ -670,8 +689,8 @@ def expect_counts(label, want):
 
 
 def settle(row, counts) -> None:
-    """A row's launches from the counts of its path's run; the accumulate
-    rows also list each pass's."""
+    """A row's launches from the counts of its path's run, and each of its
+    kernels' beside them."""
     key = row.pop("count_key", None)
     keys = row.pop("pass_keys", None)
     if key is None:
@@ -681,7 +700,8 @@ def settle(row, counts) -> None:
         row["pass_launches"] = {k: counts.get(k, 0) for k in keys}
 
 
-SPLAT_PASSES = ("front", "count", "place", "sum")
+# the kernels of a render, as ``splat.LAUNCHES`` counts them
+SPLAT_PASSES = ("fill", "zee", "degrid", "count", "place", "sum")
 
 
 def splat_counts(c: int, n: int):
@@ -691,7 +711,7 @@ def splat_counts(c: int, n: int):
 def grid_renderer_phases(rows):
     """(e) every ``render_grids_*`` generation on the card: the kernels
     against the plain passes, the entry point's own output against the
-    plain render (all bit-equal, the sums on the CPU), its four launches,
+    plain render (all bit-equal, the sums on the CPU), its six launches,
     and a driven run over the poses of a move."""
     import torch
     from kbe_torch.ops import legacy, splat as S, splat_banded, splat_routed
@@ -747,7 +767,7 @@ def grid_renderer_phases(rows):
             row["path"] = (f"{name} over {n} poses of a camera move, "
                            f"{grids} x {SIZE}^2 points, C={c}")
         log(f"{label}: entry point bit-equal to the plain render, overflow "
-            f"false, 4 launches a call, {n} calls driven")
+            f"false, 6 launches a call, {n} calls driven")
 
 
 def fill_variant_phase(rows):
@@ -1016,7 +1036,7 @@ def autozoom_phase(rows, size: int = SIZE, small: int = 256, grid: int = 16,
     if on_card:
         expect_counts("(i) autozoom", splat_counts(3, grid * grid))
     log(f"(i) autozoom at {size}^2, {grid * grid} candidates: window "
-        f"{chosen} in {wall:.4f} s, {grid * grid} x 3 launches")
+        f"{chosen} in {wall:.4f} s, {grid * grid} x 6 launches")
 
     if on_card:
         camera = scene["camera"]

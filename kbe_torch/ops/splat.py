@@ -27,9 +27,10 @@ On the card the front half is one call of three kernels: ``splat_fill``
 kernel generation behind each, all computing this one function.
 
 The wrappers below take the plain path only for CPU tensors; a CUDA tensor
-launches the kernel or raises. Each wrapper counts its launches in
-``LAUNCHES``, keyed ``"<pass>/c<C>"``: a render on the card calls
-``front`` (its three kernels), ``count``, ``place`` and ``sum`` once each.
+launches the kernel or raises. Each wrapper counts the kernels it launches
+in ``LAUNCHES``, keyed ``"<kernel>/c<C>"``: a render on the card launches
+``fill``, ``zee``, ``degrid``, ``count``, ``place`` and ``sum`` once each
+(a cloud of no points only ``fill``, ``degrid`` and ``sum``).
 
 The pose is a (5,) f32 tensor ``(sx, sy, sz, focal, focal * baseline)`` on
 the points' device: every pass adds the shift to the points itself, so the
@@ -216,7 +217,10 @@ def _front(lib, stream, xyz, valid, pose, height, width, c, counts=None):
     keys = torch.empty((height * width,), dtype=torch.int32,
                        device=xyz.device)
     zee = torch.empty((height, width), dtype=torch.float32, device=xyz.device)
-    _count("front", c)
+    _count("fill", c)
+    if xyz.shape[0]:
+        _count("zee", c)
+    _count("degrid", c)
     _build.check(lib.kbe_splat_front(
         xyz.data_ptr(), _ptr(valid), pose.data_ptr(), xyz.shape[0], height,
         width, keys.data_ptr(), zee.data_ptr(), _ptr(counts), stream),
@@ -224,7 +228,10 @@ def _front(lib, stream, xyz, valid, pose, height, width, c, counts=None):
     return keys, zee
 
 
-def _route(lib, stream, xyz, valid, pose, zee, height, width, cursor, keys):
+def _route(lib, stream, xyz, valid, pose, zee, height, width, cursor, keys,
+           kernel, c):
+    if xyz.shape[0]:  # kbe_splat_route launches nothing for no points
+        _count(kernel, c)
     _build.check(lib.kbe_splat_route(
         xyz.data_ptr(), _ptr(valid), pose.data_ptr(), zee.data_ptr(),
         xyz.shape[0], height, width, cursor.data_ptr(), _ptr(keys), stream),
@@ -234,8 +241,8 @@ def _route(lib, stream, xyz, valid, pose, zee, height, width, cursor, keys):
 def _count_entries(lib, stream, xyz, valid, pose, zee, height, width, c,
                    counts):
     """``counts``: (H*W,) int32 zeros, which gain the entries."""
-    _count("count", c)
-    _route(lib, stream, xyz, valid, pose, zee, height, width, counts, None)
+    _route(lib, stream, xyz, valid, pose, zee, height, width, counts, None,
+           "count", c)
     return counts
 
 
@@ -244,8 +251,8 @@ def _place(lib, stream, xyz, valid, pose, zee, counts, height, width, c):
     cursor = torch.cumsum(counts, 0, dtype=torch.int32)
     keys = torch.empty((max(4 * xyz.shape[0], 1),), dtype=torch.int64,
                        device=xyz.device)
-    _count("place", c)
-    _route(lib, stream, xyz, valid, pose, zee, height, width, cursor, keys)
+    _route(lib, stream, xyz, valid, pose, zee, height, width, cursor, keys,
+           "place", c)
     return cursor, keys
 
 
@@ -284,7 +291,7 @@ def front_cuda(xyz, valid, pose, height: int, width: int, c: int,
     (``zee_plain`` once decoded) and its (H, W) f32 degridded copy
     (``degrid_plain`` of it). ``valid`` may be None. ``counts``, an
     (H*W,) int32 CUDA buffer, is zeroed for the count pass. ``c`` only
-    names the call in ``LAUNCHES``."""
+    names the kernels in ``LAUNCHES``."""
     _check_inputs(xyz, valid, pose)
     if counts is not None:
         _check_counts(counts, height, width)
@@ -292,15 +299,23 @@ def front_cuda(xyz, valid, pose, height: int, width: int, c: int,
                   height, width, c, counts)
 
 
-def count_cuda(xyz, valid, pose, zee, height: int, width: int,
-               c: int) -> torch.Tensor:
+def _zeroed_counts(counts, xyz, height: int, width: int) -> torch.Tensor:
+    if counts is None:
+        return torch.zeros((height * width,), dtype=torch.int32,
+                           device=xyz.device)
+    _check_counts(counts, height, width)
+    return counts
+
+
+def count_cuda(xyz, valid, pose, zee, height: int, width: int, c: int,
+               counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel ``splat_route``, counting: the (H*W,) int32 number of each
     pixel's entries, in-image corners of valid points that pass the z test
-    against the degridded ``zee``."""
+    against the degridded ``zee``. ``counts``: (H*W,) int32 zeros to count
+    into, as ``front_cuda`` leaves them; None allocates them."""
     _check_inputs(xyz, valid, pose)
     _check_zee(zee, height, width)
-    counts = torch.zeros((height * width,), dtype=torch.int32,
-                         device=xyz.device)
+    counts = _zeroed_counts(counts, xyz, height, width)
     return _count_entries(_build.lib("splat"), _stream(xyz), xyz, valid,
                           pose, zee, height, width, c, counts)
 
@@ -340,14 +355,15 @@ def sum_cuda(payload, counts, starts, keys, height: int, width: int,
 
 
 def accumulate_cuda(xyz, valid, payload, pose, zee, height: int,
-                    width: int, normalize: bool = False) -> torch.Tensor:
+                    width: int, normalize: bool = False,
+                    counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel ``splat_route`` (count, then place) and ``splat_sum``: the
     (H*W, C+1) f32 sums of ``accumulate_plain`` (normalised as ``splat``
-    does with ``normalize``), bit for bit."""
+    does with ``normalize``), bit for bit. ``counts``: as ``count_cuda``
+    takes them."""
     _check_inputs(xyz, valid, pose, payload)
     _check_zee(zee, height, width)
-    counts = torch.zeros((height * width,), dtype=torch.int32,
-                         device=xyz.device)
+    counts = _zeroed_counts(counts, xyz, height, width)
     return _accumulate(_build.lib("splat"), _stream(xyz), xyz, valid,
                        payload, pose, zee, height, width, normalize, counts)
 

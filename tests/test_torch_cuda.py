@@ -43,13 +43,18 @@ def test_splat_kernels_match_plain(cuda, c):
     xyz, payload, valid = _cloud(cuda, h, w, c, seed=c)
     pose = S.make_pose(torch.tensor([3.5, -2.0, -10.0], device=cuda), 128.0,
                        60.0)
-    keys, deg = S.front_cuda(xyz, valid, pose, h, w, c)
+    counts = torch.empty(h * w, dtype=torch.int32, device=cuda)
+    keys, deg = S.front_cuda(xyz, valid, pose, h, w, c, counts=counts)
     zee = S.zee_plain(xyz, valid, pose, h, w)
     assert torch.equal(S.decode_keys(keys).reshape(h, w), zee)
     assert torch.equal(deg, S.degrid_plain(zee))
     acc = S.accumulate_cuda(xyz, valid, payload, pose, deg, h, w)
     want = _plain_on_cpu(xyz, valid, payload, pose, deg, h, w)
     assert torch.equal(acc.cpu(), want)
+    # the counts the front half zeroed, as ``splat`` hands them on
+    assert torch.equal(S.accumulate_cuda(xyz, valid, payload, pose, deg, h,
+                                         w, counts=counts), acc)
+    assert torch.equal(counts, S.count_cuda(xyz, valid, pose, deg, h, w, c))
     rendered, existing = S.splat(xyz, payload, valid, pose, h, w)
     assert torch.equal(rendered.cpu(), (want[:, :c] / (want[:, c:] + 1e-7))
                        .reshape(h, w, c))
@@ -90,15 +95,18 @@ def _front_case(cuda, case):
 @pytest.mark.parametrize("case", ["odd", "empty", "all_invalid", "no_mask",
                                   "pathological"])
 def test_front_half_matches_plain(cuda, case):
-    """``splat_front``'s keys and degridded buffer against ``zee_plain`` and
-    ``degrid_plain``, the counts zeroed, one launch; and the whole render
-    against the CPU's plain one."""
+    """``front_cuda``'s keys and degridded buffer against ``zee_plain`` and
+    ``degrid_plain``, the counts zeroed, its three kernels launched (no
+    zee for no points); and the whole render against the CPU's plain
+    one."""
     xyz, valid, h, w = _front_case(cuda, case)
     pose = S.make_pose(torch.zeros(3, device=cuda), 128.0, 60.0)
     counts = torch.full((h * w,), 7, dtype=torch.int32, device=cuda)
     S.LAUNCHES.clear()
     keys, deg = S.front_cuda(xyz, valid, pose, h, w, 4, counts=counts)
-    assert dict(S.LAUNCHES) == {"front/c4": 1}
+    kernels = ("fill", "degrid") if case == "empty" else (
+        "fill", "zee", "degrid")
+    assert dict(S.LAUNCHES) == {f"{k}/c4": 1 for k in kernels}
     zee = S.zee_plain(xyz, valid, pose, h, w)
     assert torch.equal(S.decode_keys(keys).reshape(h, w), zee)
     assert torch.equal(deg, S.degrid_plain(zee))
@@ -242,7 +250,7 @@ def _entry_points():
 @pytest.mark.parametrize("grids,c", [(3, 4), (1, 68)])
 def test_grid_entry_point_runs_the_kernels(cuda, name, grids, c):
     """Each ``render_grids_*`` on CUDA tensors against its own plain route
-    (the same call on CPU tensors) at 256^2, and its four launches."""
+    (the same call on CPU tensors) at 256^2, and its six launches."""
     h = w = 256
     fn = _entry_points()[name]
     xyz, data, valid = _grids(h, w, grids, c, seed=c + grids)
@@ -251,7 +259,7 @@ def test_grid_entry_point_runs_the_kernels(cuda, name, grids, c):
     got = fn(xyz.to(cuda), data.to(cuda), h, w, 128.0, 60.0,
              valid=valid.to(cuda))
     assert dict(S.LAUNCHES) == {f"{k}/c{c}": 1 for k in (
-        "front", "count", "place", "sum")}
+        "fill", "zee", "degrid", "count", "place", "sum")}
     assert len(got) == len(want)
     for g, wnt in zip(got[:2], want[:2]):
         assert torch.equal(g.cpu(), wnt)
@@ -297,5 +305,5 @@ def test_autozoom_on_the_card_picks_the_cpu_window(cuda):
     got = autozoom(points.to(cuda), image.to(cuda), window, 1.25, 24.0,
                    depth_range(depth.to(cuda), 32), cam, grid=4)
     assert dict(S.LAUNCHES) == {f"{k}/c3": 16 for k in (
-        "front", "count", "place", "sum")}
+        "fill", "zee", "degrid", "count", "place", "sum")}
     assert got == want

@@ -290,7 +290,7 @@ def _encode(zee):
 
 
 def _degrid_tiled(keys, h, w):
-    """``splat_front``'s degrid phase in numpy: per tile, the tile's rows
+    """The ``splat_degrid`` kernel in numpy: per tile, the tile's rows
     and the rows above and below it decoded into a pitch-wide buffer (the
     left halo at column 3, the tile at 4.., the right halo after it), +inf
     outside the image; each pixel from that buffer alone, in the kernel's

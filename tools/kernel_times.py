@@ -3,7 +3,6 @@
 tree on the card.
 
     python tools/kernel_times.py [--tree DIR] [--sets 5] [--reps 20]
-                                 [--loop ROUNDS]
 
 Imports ``kbe_torch`` from ``DIR`` (default: this checkout), so one call
 can time two versions of the kernels in turns on one card, for example
@@ -30,99 +29,19 @@ half also, from ``torch.profiler`` over ``--reps`` calls, the device ms a
 call in its kernels (the sum of their intervals) and its device span (from
 its first kernel's start to its last one's end, the median over the
 calls); and whether the accumulation was bit-equal over two runs.
-
-Where the tree's ``splat.cu`` has the front half's phase functions, it
-also times them as one cooperative launch (``front_fused``): the same
-source with a kernel appended that runs the fill, zee and the degrid with
-a grid-wide barrier between them (grid = SMs x resident blocks), built
-with the tree's nvcc flags into its git-ignored ``_build``. ``--loop N``
-then times the default effect's 1024^2, 75-frame pose loop on one
-front-end state with the tree's front half and with the fused one, in
-turns (shipped, fused, fused, shipped) N times, and checks that both give
-the same frames.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import importlib.util
 import json
 import os
 import statistics
 import subprocess
 import sys
-import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-# the front half's phases in one cooperative launch
-FUSED_SRC = r"""
-#include <cooperative_groups.h>
-namespace {
-__global__ void __launch_bounds__(kFrontThreads) fused_front(FrontArgs a) {
-  __shared__ __align__(16) float tile[kTileRows + 2][kTilePitch];
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  front_set(a.keys, a.h * a.w, kZFarKey, tid, stride);
-  grid.sync();
-  front_zee(a, tid, stride);
-  grid.sync();
-  if (a.counts != nullptr) front_set(a.counts, a.h * a.w, 0, tid, stride);
-  front_degrid(a, blockIdx.x, gridDim.x, tile);
-}
-}  // namespace
-extern "C" int kbe_fused_front(const float* xyz, const float* valid,
-                               const float* pose, int n, int h, int w,
-                               int* keys, float* zee, int* counts,
-                               void* stream) {
-  static int blocks = 0;  // SMs x resident blocks, asked once (one card)
-  if (blocks == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_front,
-                                                  kFrontThreads, 0);
-    blocks = sms * per_sm;
-  }
-  FrontArgs a{xyz, valid, pose, n, h, w, keys, zee, counts};
-  void* args[] = {&a};
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)fused_front, blocks, kFrontThreads, args, 0,
-      (cudaStream_t)stream);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
-}
-"""
-
-
-def fused_front(tree: str):
-    """The tree's front half as one cooperative launch (``FUSED_SRC``
-    appended to its ``splat.cu``), loaded with ctypes; None where the
-    tree's source has no phase functions."""
-    from kbe_torch.ops import _build
-
-    src = open(os.path.join(tree, "kbe_torch", "ops", "csrc",
-                            "splat.cu")).read()
-    if "front_degrid(" not in src:
-        return None
-    flags = _build._COMMON_FLAGS + _build.SOURCES["splat"][0]
-    src += FUSED_SRC
-    key = hashlib.sha256((src + " ".join(flags)).encode()).hexdigest()[:16]
-    out = os.path.join(tree, "kbe_torch", "ops", "_build",
-                       f"front-fused-{key}")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    with open(out + ".cu", "w") as f:
-        f.write(src)
-    subprocess.run([_build._nvcc()] + flags + ["-o", out + ".so",
-                                               out + ".cu"], check=True,
-                   capture_output=True)
-    lib = ctypes.CDLL(out + ".so")
-    lib.kbe_fused_front.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                                    + [ctypes.c_void_p] * 4)
-    lib.kbe_fused_front.restype = ctypes.c_int
-    return lib
 
 
 def device_span_ms(cs, fn, reps: int) -> float:
@@ -137,67 +56,11 @@ def device_span_ms(cs, fn, reps: int) -> float:
         for k in range(0, len(spans), per)) / 1e3
 
 
-def pose_loop_turns(S, fused, fused_call, rounds: int):
-    """ms a frame of the default effect's 1024^2, 75-frame pose loop on one
-    front-end state, with the tree's front half (``S._front``) and with the
-    fused launch in its place, in turns; raises if their frames differ."""
-    import torch
-    from kbe_torch.config import ZoomSettings
-    from kbe_torch.data import demo_scene_image
-    from kbe_torch.pipeline import KenBurnsPipeline
-
-    size = 1024
-    pipe = KenBurnsPipeline.create(seed=0, dtype=torch.bfloat16,
-                                   depth_dtype=torch.float32, device="cuda")
-    image = demo_scene_image(size, size)
-    pipe(image)  # warm-up
-    fn = pipe.effect_fn(size, size, ZoomSettings.default_3d(size, size))
-    state = fn.front_end(pipe.models, torch.as_tensor(image,
-                                                      device="cuda")[None])
-    shipped = S._front
-
-    def fused_front_half(lib, stream, xyz, valid, pose, h, w, c,
-                         counts=None):
-        keys = torch.empty((h * w,), dtype=torch.int32, device=xyz.device)
-        zee = torch.empty((h, w), dtype=torch.float32, device=xyz.device)
-        if counts is None:
-            counts = torch.empty_like(keys)
-        S._count("front", c)
-        fused_call(xyz, valid, pose, keys, zee, counts)
-        return keys, zee
-
-    variants = {"shipped": shipped, "fused": fused_front_half}
-    ms = {name: [] for name in variants}
-    try:
-        frames = {}
-        for name, f in variants.items():
-            S._front = f
-            frames[name] = fn.render_frames(state)
-        if not torch.equal(frames["shipped"], frames["fused"]):
-            raise AssertionError("the fused front half changes the frames")
-        for _ in range(rounds):
-            for name in ("shipped", "fused", "fused", "shipped"):
-                S._front = variants[name]
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn.render_frames(state)
-                torch.cuda.synchronize()
-                ms[name].append((time.perf_counter() - t0) / 75 * 1e3)
-    finally:
-        S._front = shipped
-    return {"runs": ms,
-            "mean": {k: statistics.mean(v) for k, v in ms.items()},
-            "median": {k: statistics.median(v) for k, v in ms.items()}}
-
-
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--tree", default=HERE)
     parser.add_argument("--sets", type=int, default=5)
     parser.add_argument("--reps", type=int, default=20)
-    parser.add_argument("--loop", type=int, default=0,
-                        help="rounds of the pose-loop turns (shipped, "
-                             "fused, fused, shipped); 0 skips them")
     args = parser.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -275,25 +138,10 @@ def main() -> int:
         return S.degrid_cuda(S.zee_cuda(x, v, q, size, size, c), size,
                              size, c)
 
-    fused = fused_front(tree)
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def fused_call(x, v, q, keys, deg, cnt):
-        status = fused.kbe_fused_front(
-            x.data_ptr(), None if v is None else v.data_ptr(), q.data_ptr(),
-            x.shape[0], deg.shape[0], deg.shape[1], keys.data_ptr(),
-            deg.data_ptr(), cnt.data_ptr(), stream)
-        if status:
-            raise RuntimeError(f"kbe_fused_front: CUDA error {status}")
-
-    fused_keys = torch.empty(size * size, dtype=torch.int32, device="cuda")
-    fused_deg = torch.empty(size, size, device="cuda")
-
     def short(name):
         return name.replace("(anonymous namespace)::", "").split("(")[0][:60]
 
     front_ms, front_dev, front_span, front_kernels = {}, {}, {}, {}
-    fused_ms, fused_dev, fused_span = {}, {}, {}
     for name, (x, p, v, q) in cases.items():
         c = p.shape[1]
         front_ms[name] = med(lambda: front(x, v, q, c))
@@ -305,22 +153,6 @@ def main() -> int:
                 lambda: front(x, v, q, c), args.reps).items()}
         front_span[name] = device_span_ms(
             cs, lambda: front(x, v, q, c), args.reps)
-        if fused is None:
-            continue
-
-        def one(x=x, v=v, q=q):
-            fused_call(x, v, q, fused_keys, fused_deg, counts)
-
-        one()
-        if not torch.equal(fused_deg, front(x, v, q, c)):
-            raise AssertionError(f"{name}: the fused front half differs")
-        fused_ms[name] = med(one)
-        fused_dev[name] = statistics.median(
-            cs.device_ms(one, args.reps, ("fused_front",))[1]
-            for _ in range(args.sets))
-        fused_span[name] = device_span_ms(cs, one, args.reps)
-    loop = pose_loop_turns(S, fused, fused_call, args.loop) \
-        if args.loop and fused is not None else None
 
     times, equal = {}, {}
     for name, (x, p, v, q) in (
@@ -354,10 +186,7 @@ def main() -> int:
         else "zee_cuda + degrid_cuda",
         "front_ms": front_ms, "front_device_ms": front_dev,
         "front_device_span_ms": front_span,
-        "front_kernel_device_ms": front_kernels,
-        "front_fused_ms": fused_ms, "front_fused_device_ms": fused_dev,
-        "front_fused_device_span_ms": fused_span,
-        "pose_loop_ms_per_frame": loop, "ms": times,
+        "front_kernel_device_ms": front_kernels, "ms": times,
         "accumulate_run_to_run_equal": equal}), flush=True)
     return 0
 
