@@ -43,6 +43,15 @@ Phases, in order; any failure raises and the script exits non-zero:
          C=3 coverage renders of three candidates against the plain passes,
          and the card's choice against the CPU's at 256^2;
      (j) the CLI's ``run`` at 256^2, defaults and ``--dolly``;
+     (t) inpainting training through ``cli/train_torch.py``'s trainer and
+         data at 384x512, batch 8 (full ContextNet, Inpaint, and
+         MPDDiscriminator with spectral norm and VGG16): 3 supervised
+         steps, then one D-only and two G+D adversarial iterations; ms a
+         step, finite losses, moved parameters and launches checked (six
+         forward splat kernels a batch item, one ``splat_grad`` a batch
+         item on a G step); ``splat_grad`` against ``splat_grad_plain`` and
+         the CPU's autograd on the step's own cloud (C=68) and on a masked
+         C=4 cloud, and its row;
   7. the ``{"kernels": [...]}`` line, then the device line last. A row's
      ``launches`` are those of the run named in its ``path``, counted from
      zero just before that run. ``ms`` is the call's time (CUDA events
@@ -50,8 +59,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernels on the device (``torch.profiler`` over the same number of
      calls), ``device_all_ms`` that of every kernel the call launches.
 
-Tolerances: none. Every kernel is exact: the front half's z-buffer keys and
-its degridded buffer, and the fill, are bit-equal to their plain versions
+Tolerances: none. Every kernel is exact (``splat_grad`` too, against the
+plain gather on the card and the CPU's autograd of the plain render): the
+front half's z-buffer keys and its degridded buffer, and the fill, are bit-equal to their plain versions
 on the card (the keys and the degrid compared apart), and the accumulation (the
 place and sum passes) and the normalised render are bit-equal to the plain
 version run on the CPU, whose ``index_add_`` sums each pixel's entries in
@@ -117,20 +127,23 @@ def device_events(fn, reps: int):
     """The device intervals (name, start us, end us) of ``reps`` calls of
     ``fn``, from ``torch.profiler``: a warm-up step of ``reps`` calls,
     which the profiler drops (a profile's first kernels can go missing),
-    then the recorded one. Each kernel must come a multiple of ``reps``
-    times; a profile that lost some is taken again, twice at most."""
+    then the recorded one, each after an idle gap on the host (a recorded
+    step has kept only its last calls' kernels, as if its window opened
+    late). Each kernel must come a multiple of ``reps`` times; a profile
+    that lost some is taken again, four times at most."""
     import collections
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1)) as prof:
             for _ in range(2):
+                time.sleep(0.05)
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
@@ -1098,6 +1111,256 @@ def cli_phase(size: int = 256, device: str = "cuda"):
             f"{wall:.4f} s, frames mean {float(frames.mean()):.3f}")
 
 
+TRAIN_SIZE = (384, 512)     # cli/train_torch.py's synthetic inpainting size
+TRAIN_BATCH = 8             # its default batch
+SUP_STEPS = 3
+SPLAT_SPEC = "kbe_tpu/ops/splat.py:106"   # _accumulate_pass, under jax.grad
+
+
+def _train_args(mode: str, device: str, logs: str):
+    from cli import train_torch as cli
+
+    return cli.build_parser().parse_args(
+        ["--training-mode", mode, "--synthetic", "--device", device,
+         "--batch-size", str(TRAIN_BATCH), "--logs-path", logs])
+
+
+def _params_of(state):
+    return [p.detach().clone() for p in state.parameters()]
+
+
+def _moved(before, state) -> float:
+    return max(float((a - p.detach()).abs().max())
+               for a, p in zip(before, state.parameters()))
+
+
+def _check_losses(label, metrics):
+    import math
+
+    values = {k: float(v) for k, v in metrics.items()}
+    bad = [k for k, v in values.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{label}: losses not finite: {bad} {values}")
+    return values
+
+
+def _sync(device: str):
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def training_phase(rows, size=TRAIN_SIZE, device: str = "cuda"):
+    """(t) inpainting training, the path of ``cli/train_torch.py`` (its
+    trainer, its synthetic data) at full width: ``ContextNet``, the full
+    ``Inpaint`` grid-net, ``MPDDiscriminator`` with spectral norm and its
+    VGG16, ``size``, batch 8. Three supervised steps, then three
+    adversarial iterations with ``pretrain_steps=0`` and ``balance_steps=1``
+    (one D-only, two G+D). Each step: ms, finite losses, parameters moved,
+    its launches (none in a supervised step, whose masks are plain
+    PyTorch; six forward splat kernels a batch item in an adversarial one,
+    and one ``grad`` a batch item in a G+D one). Then ``splat_grad`` on
+    the last step's own cloud (C=68) and on a masked C=4 cloud, against
+    ``splat_grad_plain`` and the CPU's autograd, and its row. Returns the
+    launch counts of the G+D iterations."""
+    import tempfile
+
+    import torch
+    from cli import train_torch as cli
+    from kbe_torch.train.trainer_inpaint import TRAIN_CAMERA, to_device
+
+    h, w = size
+    n, b = h * w, TRAIN_BATCH
+    with tempfile.TemporaryDirectory() as logs:
+        # supervised
+        args = _train_args("inpainting", device, logs + "/sup")
+        cli.SYNTHETIC_SIZE["inpainting"] = size
+        trainer = cli.make_trainer(args)
+        data, _, _ = cli.make_data(args, "inpainting", TRAIN_CAMERA)
+        state = trainer.init_state(size)
+        for i in range(SUP_STEPS):
+            batch = to_device(next(data), trainer.device)
+            before = _params_of(state)
+            clear_launches()
+            _sync(device)
+            t0 = time.perf_counter()
+            state, metrics = trainer.supervised_step(state, batch)
+            _sync(device)
+            ms = (time.perf_counter() - t0) * 1e3
+            expect_counts(f"(t) supervised step {i}", {})
+            losses = _check_losses(f"(t) supervised step {i}", metrics)
+            moved = _moved(before, state)
+            if not moved > 0.0:
+                raise AssertionError(f"(t) supervised step {i}: parameters "
+                                     "did not move")
+            log(f"(t) supervised step {i} at {h}x{w}, batch {b}: {ms:.1f} ms;"
+                f" losses {json.dumps(losses)}; parameters moved (max "
+                f"{moved:.3g}); launches none (masks in plain PyTorch)")
+        del state, trainer
+
+        # adversarial
+        args = _train_args("inpainting_ref", device, logs + "/adv")
+        trainer = cli.make_trainer(args, pretrain_steps=0, balance_steps=1)
+        data, _, _ = cli.make_data(args, "inpainting", TRAIN_CAMERA)
+        g_state = trainer.init_state(size)
+        d_state = trainer.init_disc_state(size)
+        gd_counts = {}
+        for i in range(3):
+            batch = to_device(next(data), trainer.device)
+            do_g = trainer._want_g_update()
+            if do_g != (i > 0):
+                raise AssertionError(f"(t) iteration {i}: G update {do_g}")
+            g_before, d_before = _params_of(g_state), _params_of(d_state)
+            clear_launches()
+            _sync(device)
+            t0 = time.perf_counter()
+            g_state, d_state, metrics = trainer.adversarial_step(
+                g_state, d_state, batch, do_g)
+            _sync(device)
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = launch_counts()
+            want = splat_counts(68, b)
+            if do_g:
+                want[GRAD_KEY] = b
+                for k, v in counts.items():
+                    gd_counts[k] = gd_counts.get(k, 0) + v
+            if device != "cuda":  # a rehearsal: the plain path counts none
+                want = {}
+            expect_counts(f"(t) adversarial iteration {i}", want)
+            trainer.iter_nb += 1
+            kind = "G+D" if do_g else "D-only"
+            losses = _check_losses(f"(t) {kind} iteration {i}", metrics)
+            g_moved, d_moved = _moved(g_before, g_state), _moved(d_before,
+                                                                 d_state)
+            if not d_moved > 0.0 or (g_moved > 0.0) != do_g:
+                raise AssertionError(f"(t) {kind} iteration {i}: G moved "
+                                     f"{g_moved}, D moved {d_moved}")
+            log(f"(t) {kind} iteration {i} at {h}x{w}, batch {b}: {ms:.1f} "
+                f"ms; losses {json.dumps(losses)}; G moved {g_moved:.3g}, D "
+                f"moved {d_moved:.3g}; launches {json.dumps(counts)}")
+        grad_phase(rows, trainer, g_state, batch, gd_counts, device)
+    return gd_counts
+
+
+GRAD_KEY = "grad/c68"
+
+
+def _step_cloud(trainer, g_state, batch):
+    """Item 0's cloud of ``render_view_b`` in the adversarial step: the
+    shifted points and the normalised image, disparity and context."""
+    import torch
+    from kbe_torch.models.layers import normalize_sample
+    from kbe_torch.train import view_synthesis as V
+
+    with torch.no_grad():
+        img_n, _ = normalize_sample((batch["image"] + 1.0) / 2.0)
+        disp_n, _ = normalize_sample(batch["disparity"])
+        ctx = g_state.context(img_n, disp_n)
+        shift = V.batch_full_shift(batch["zoom"], batch["depth"],
+                                   trainer.camera)
+        pts = V._valid_points(batch["disparity"], batch["depth"],
+                              trainer.camera, 0.03)
+        xyz = (pts + shift[:, None, :])[0].contiguous()
+        payload = torch.cat([img_n, disp_n, ctx], dim=-1)[0]
+    return xyz, payload.reshape(xyz.shape[0], -1).contiguous()
+
+
+def _masked_cloud(h: int, w: int, device: str):
+    """A C=4 cloud of an h x w grid with a near box, a fifth masked out."""
+    import torch
+    from kbe_torch.ops.geometry import depth_to_points
+
+    g = torch.Generator().manual_seed(50)
+    depth = 300.0 + 40.0 * torch.rand(h, w, generator=g)
+    depth[h // 4:h // 2, w // 3:2 * w // 3] = 60.0
+    xyz = depth_to_points(depth, FOCAL).reshape(-1, 3)
+    valid = (torch.rand(h * w, generator=g) > 0.2).float()
+    payload = torch.rand(h * w, 4, generator=g)
+    return xyz.to(device), payload.to(device), valid.to(device)
+
+
+def grad_check(label, xyz, payload, valid, pose, h: int, w: int):
+    """``splat_grad`` against ``splat_grad_plain`` on the card and the CPU's
+    autograd of the plain render (``accumulate_plain``'s ``index_add_``):
+    bit-equal. Returns the saved forward and the upstream gradient."""
+    import torch
+    from kbe_torch.ops import splat as S
+
+    c = payload.shape[1]
+    g = torch.Generator().manual_seed(c)
+    upstream = torch.rand(h * w, c, generator=g).to(xyz.device)
+    _, existing, zee = S._render(xyz, payload, valid, pose, h, w)
+    existing = existing.contiguous()
+    # the kernel on CUDA tensors (the plain gather in a CPU rehearsal)
+    got = S.splat_grad(xyz, valid, pose, zee, existing, upstream, h, w)
+    assert_equal(f"{label} splat_grad vs plain", got,
+                 S.splat_grad_plain(xyz, valid, pose, zee, existing,
+                                    upstream, h, w))
+    cpu = payload.cpu().requires_grad_(True)
+    rendered, _ = S.splat(xyz.cpu(), cpu, None if valid is None
+                          else valid.cpu(), pose.cpu(), h, w)
+    (rendered.reshape(-1, c) * upstream.cpu()).sum().backward()
+    assert_equal(f"{label} splat_grad vs CPU autograd", got, cpu.grad)
+    live = int((got != 0).any(dim=1).sum())
+    log(f"{label}: N={xyz.shape[0]} C={c} "
+        f"{'a mask' if valid is not None else 'no mask'}: splat_grad "
+        f"bit-equal to splat_grad_plain and to the CPU's autograd; {live} "
+        f"points get a gradient")
+    return existing, zee, upstream
+
+
+def grad_phase(rows, trainer, g_state, batch, gd_counts, device):
+    """splat_grad on the step's own cloud (C=68, no mask) and on a masked
+    C=4 cloud, then timed on the step's cloud; its row."""
+    import torch
+    from kbe_torch.ops import splat as S
+
+    h, w = batch["image"].shape[1:3]
+    xyz, payload = _step_cloud(trainer, g_state, batch)
+    pose = S.make_pose(torch.zeros(3, device=xyz.device),
+                       trainer.camera.focal, trainer.camera.baseline)
+    existing, zee, upstream = grad_check("(t) step cloud", xyz, payload,
+                                         None, pose, h, w)
+    m_xyz, m_payload, m_valid = _masked_cloud(h, w, device)
+    grad_check("(t) masked cloud", m_xyz, m_payload, m_valid, pose, h, w)
+    if device != "cuda":
+        return
+
+    def fn():
+        return S.grad_cuda(xyz, None, pose, zee, existing, upstream, h, w)
+
+    reps = 20
+    ms = timed(fn, reps)
+    dev = device_ms(fn, reps, ("splat_grad",))
+    pms = timed(lambda: S.splat_grad_plain(xyz, None, pose, zee, existing,
+                                           upstream, h, w), 3)
+    n, c = payload.shape
+    counts = S.count_cuda(xyz, None, pose, zee, h, w, c)
+    entries = int(counts.sum())
+    # bytes: the upstream gradient, the weight sums, the degridded buffer
+    # and the points read once, the payload's gradient written once;
+    # operations: a projection a point (~20) and a divide, multiply and
+    # add a channel of each visible corner
+    nbytes = h * w * (c + 2) * 4 + n * 12 + 20 + n * c * 4
+    b_ms, b_by = bound(nbytes, n * 20 + entries * c * 3)
+    log(f"(t) splat_grad at {h}x{w}, C={c}: kernel ms {ms:.4f} (device "
+        f"{dev[0]:.4f}), plain ms {pms:.4f}, bound {b_ms:.4f} ({b_by}, "
+        f"{nbytes / 1e6:.1f} MB, {entries} visible entries)")
+    row = {"name": f"splat_grad[c{c}]", "route": "cuda",
+           "source": SPLAT_SRC, "replaces": SPLAT_SPEC,
+           "replaces_note": "no Pallas kernel: XLA's autodiff of the "
+           "scatter spec, which the adversarial trainer differentiates",
+           "count_key": GRAD_KEY, "max_abs_err": 0.0, "ms": ms,
+           "device_ms": dev[0], "device_all_ms": dev[1], "plain_ms": pms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "points": n, "visible_entries": entries}
+    settle(row, gd_counts)
+    row["path"] = (f"training: 2 G+D iterations of inpainting_ref at {h}x{w},"
+                   f" batch {TRAIN_BATCH}")
+    rows.append(row)
+
+
 def main() -> int:
     try:
         import torch
@@ -1144,6 +1407,7 @@ def main() -> int:
     routed_vs_posed()
     autozoom_counts = autozoom_phase(more)
     cli_phase()
+    training_phase(more)
     for row in more:
         if "mode" in row:
             mode = row["mode"]
@@ -1154,7 +1418,7 @@ def main() -> int:
             settle(row, autozoom_counts)
             row["path"] = (f"autozoom: {SIZE}^2 points, "
                            f"{row['launches']} candidates")
-        else:  # (e) and (p) counted their own runs
+        else:  # (e), (p) and (t) counted their own runs
             assert "launches" in row, row["name"]
     rows += more
     print(smi)

@@ -8,9 +8,12 @@ module layout mirrors ``kbe_tpu`` so each counterpart is easy to find:
              ``ops/csrc/*.cu`` hold the CUDA kernels, ``ops/_build.py``
              builds them with nvcc at first use and binds them with ctypes
   models/    the PyTorch nets (Semantics, Disparity, Refine, ContextNet,
-             Inpaint), named as the Flax param trees are
+             Inpaint, VGG16, the discriminators), named as the Flax param
+             trees are
   pipeline/  the inpainting flow and the 75-pose effect
-  utils/     the Flax param tree -> state dict converter
+  train/     inpainting training: losses, metrics, view synthesis, data,
+             checkpoints and the trainer
+  utils/     the Flax param tree -> state dict converter, metrics logging
 
 Public functions keep the JAX package's layouts (NHWC images, (G, H, W, 3)
 clouds). Entry points run on ``cuda`` unless the caller asks for the CPU.

@@ -34,6 +34,7 @@ SOURCES = {
         "kbe_splat_front": ([_P] * 3 + [_I] * 3 + [_P] * 4, _I),
         "kbe_splat_route": ([_P] * 4 + [_I] * 3 + [_P] * 3, _I),
         "kbe_splat_sum": ([_P] * 5 + [_I] * 4 + [_P] * 2, _I),
+        "kbe_splat_grad": ([_P] * 6 + [_I] * 4 + [_P] * 2, _I),
     }),
     "discfill": ([], {
         "kbe_discfill_set_tables": ([_P], _I),

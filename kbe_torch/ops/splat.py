@@ -22,6 +22,14 @@ On the card the front half is one call of three kernels: ``splat_fill``
 (the z-buffer, and the count pass's counts), ``splat_zee`` and
 ``splat_degrid``.
 
+The render is differentiable with respect to the payload, as the spec is
+under ``jax.grad``: on the CPU through the plain version's ``index_add_``,
+on the card through ``SplatFunction``, whose backward is the kernel
+``splat_grad`` (``splat_grad_plain`` beside it): each point gathers
+``w_k * g[p_k] / (W[p_k] + 1e-7)`` from its visible corners k, in NW, NE,
+SW, SE order. The points, the mask and the pose get no gradient: a render
+whose ``xyz``, ``valid`` or ``pose`` requires one raises.
+
 ``render_grids`` is the shared body of the grid-cloud entry points of
 ``splat_routed``, ``splat_banded`` and ``legacy``: the TPU package has a
 kernel generation behind each, all computing this one function.
@@ -30,7 +38,8 @@ The wrappers below take the plain path only for CPU tensors; a CUDA tensor
 launches the kernel or raises. Each wrapper counts the kernels it launches
 in ``LAUNCHES``, keyed ``"<kernel>/c<C>"``: a render on the card launches
 ``fill``, ``zee``, ``degrid``, ``count``, ``place`` and ``sum`` once each
-(a cloud of no points only ``fill``, ``degrid`` and ``sum``).
+(a cloud of no points only ``fill``, ``degrid`` and ``sum``), and its
+backward ``grad`` once.
 
 The pose is a (5,) f32 tensor ``(sx, sy, sz, focal, focal * baseline)`` on
 the points' device: every pass adds the shift to the points itself, so the
@@ -47,6 +56,7 @@ run to run.
 from __future__ import annotations
 
 import collections
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -95,11 +105,10 @@ def _flat_index(xi, yi, height: int, width: int, ok):
     return torch.where(inb, flat, torch.full_like(flat, height * width)), inb
 
 
-def zee_plain(xyz, valid, pose, height: int, width: int) -> torch.Tensor:
-    """Scatter-min z-buffer, (H, W) f32."""
-    u, v, err, ok = _project(xyz, valid, pose, height, width)
+def best_corner_index(u, v, height: int, width: int, ok):
+    """Flat pixel index of each point's first corner of largest bilinear
+    weight (NW, NE, SW, SE order, as ``jnp.argmax``), or the dead slot."""
     xi, yi, w = _neighbor_weights(u, v)
-    # the first corner of largest weight (NW, NE, SW, SE order)
     best = torch.zeros_like(u, dtype=torch.long)
     for k in range(1, 4):
         best = torch.where(w[:, k] > torch.gather(w, 1, best[:, None])[:, 0],
@@ -107,6 +116,13 @@ def zee_plain(xyz, valid, pose, height: int, width: int) -> torch.Tensor:
     best = best[:, None]
     flat, _ = _flat_index(torch.gather(xi, 1, best)[:, 0],
                           torch.gather(yi, 1, best)[:, 0], height, width, ok)
+    return flat
+
+
+def zee_plain(xyz, valid, pose, height: int, width: int) -> torch.Tensor:
+    """Scatter-min z-buffer, (H, W) f32."""
+    u, v, err, ok = _project(xyz, valid, pose, height, width)
+    flat = best_corner_index(u, v, height, width, ok)
     zee = torch.full((height * width + 1,), _ZFAR, dtype=torch.float32,
                      device=xyz.device)
     zee.scatter_reduce_(0, flat, err, reduce="amin")
@@ -154,6 +170,33 @@ def accumulate_plain(xyz, valid, payload, pose, zee, height: int,
                       device=payload.device)
     out.index_add_(0, idx.reshape(-1), vals)
     return out[:-1]
+
+
+def splat_grad_plain(xyz, valid, pose, zee, existing, grad, height: int,
+                     width: int) -> torch.Tensor:
+    """The payload's (N, C) gradient of the normalised render, given the
+    (H*W, C) gradient ``grad`` of the render, the degridded ``zee`` and the
+    weight sums ``existing`` (H*W values) of its forward: for each point,
+    the sum over its visible corners k, in NW, NE, SW, SE order from zero,
+    of ``w_k * (grad[p_k] / (existing[p_k] + 1e-7))``. The CPU's autograd
+    of ``accumulate_plain`` and the normalisation computes the same
+    products and quotients (``tests/test_torch_splat_grad.py``)."""
+    hw = height * width
+    u, v, err, ok = _project(xyz, valid, pose, height, width)
+    xi, yi, w = _neighbor_weights(u, v)
+    flat, inb = _flat_index(xi, yi, height, width, ok[:, None])
+    safe = flat.clamp(max=hw - 1)
+    zn = torch.where(inb, zee.reshape(-1)[safe],
+                     torch.full_like(w, -float("inf")))
+    vis = inb & (err[:, None] <= zn + 1.0)
+    quotient = grad / (existing.reshape(hw, 1) + 1e-7)
+    out = torch.zeros((xyz.shape[0], grad.shape[1]), dtype=torch.float32,
+                      device=grad.device)
+    for k in range(4):
+        term = w[:, k:k + 1] * quotient[safe[:, k]]
+        out = out + torch.where(vis[:, k:k + 1], term,
+                                torch.zeros_like(term))
+    return out
 
 
 # ------------------------------------------------------------ CUDA wrappers
@@ -283,6 +326,18 @@ def _accumulate(lib, stream, xyz, valid, payload, pose, zee, height, width,
                 normalize)
 
 
+def _grad(lib, stream, xyz, valid, pose, zee, existing, grad, height, width):
+    n, c = xyz.shape[0], grad.shape[1]
+    out = torch.empty((n, c), dtype=torch.float32, device=xyz.device)
+    if n and c:  # kbe_splat_grad launches nothing for no points
+        _count("grad", c)
+    _build.check(lib.kbe_splat_grad(
+        xyz.data_ptr(), _ptr(valid), pose.data_ptr(), zee.data_ptr(),
+        existing.data_ptr(), grad.data_ptr(), n, c, height, width,
+        out.data_ptr(), stream), "splat_grad")
+    return out
+
+
 def front_cuda(xyz, valid, pose, height: int, width: int, c: int,
                counts: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -368,6 +423,37 @@ def accumulate_cuda(xyz, valid, payload, pose, zee, height: int,
                        payload, pose, zee, height, width, normalize, counts)
 
 
+def grad_cuda(xyz, valid, pose, zee, existing, grad, height: int,
+              width: int) -> torch.Tensor:
+    """Kernel ``splat_grad``: ``splat_grad_plain`` on the card, bit for
+    bit. ``existing``: the forward's (H*W,) or (H*W, 1) weight sums;
+    ``grad``: (H*W, C) f32. Returns the (N, C) f32 gradient."""
+    _check_inputs(xyz, valid, pose)
+    _check_zee(zee, height, width)
+    hw = height * width
+    for name, t, shape in (("existing", existing, (hw,)),
+                           ("grad", grad, (hw, grad.shape[-1]))):
+        if (not t.is_cuda or t.dtype != torch.float32
+                or not t.is_contiguous() or t.numel() != math.prod(shape)
+                or t.device != xyz.device):
+            raise ValueError(f"{name} must be a contiguous f32 CUDA tensor "
+                             f"of {shape} elements on xyz's device")
+    if grad.ndim != 2:
+        raise ValueError("expected grad (H*W, C)")
+    return _grad(_build.lib("splat"), _stream(xyz), xyz, valid, pose, zee,
+                 existing, grad, height, width)
+
+
+def splat_grad(xyz, valid, pose, zee, existing, grad, height: int,
+               width: int) -> torch.Tensor:
+    """The payload's gradient: the kernel for CUDA tensors, the plain
+    version for CPU ones."""
+    if xyz.is_cuda:
+        return grad_cuda(xyz, valid, pose, zee, existing, grad, height, width)
+    return splat_grad_plain(xyz, valid, pose, zee, existing, grad, height,
+                            width)
+
+
 def decode_keys(keys: torch.Tensor) -> torch.Tensor:
     """Inverse of the kernels' order-preserving float -> int32 encoding."""
     flipped = torch.where(keys < 0, keys ^ 0x7fffffff, keys)
@@ -376,14 +462,10 @@ def decode_keys(keys: torch.Tensor) -> torch.Tensor:
 
 # ----------------------------------------------------------------- renderers
 
-def splat(xyz, payload, valid, pose, height: int,
-          width: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Render one cloud at one pose.
-
-    ``xyz`` (N, 3), ``payload`` (N, C), ``valid`` (N,) or None, ``pose``
-    (5,), all f32 on one device. Returns (rendered (H, W, C), existing (H,
-    W, 1)).
-    """
+def _render(xyz, payload, valid, pose, height: int, width: int):
+    """(rendered (H*W, C), existing (H*W, 1), degridded zee (H, W)) with no
+    graph: the kernels for CUDA tensors (inputs checked), the plain passes
+    for CPU ones."""
     c = payload.shape[1]
     if xyz.is_cuda:
         _check_inputs(xyz, valid, pose, payload)
@@ -392,16 +474,67 @@ def splat(xyz, payload, valid, pose, height: int,
                              device=xyz.device)
         _, zee = _front(lib, stream, xyz, valid, pose, height, width, c,
                         counts)
-        # the sum pass divides as the line below does, bit for bit
+        # the sum pass divides as the plain version does, bit for bit
         acc = _accumulate(lib, stream, xyz, valid, payload, pose, zee,
                           height, width, True, counts)
-        rendered = acc[:, :c]
+        return acc[:, :c], acc[:, c:], zee
+    zee = degrid_plain(zee_plain(xyz, valid, pose, height, width))
+    acc = accumulate_plain(xyz, valid, payload, pose, zee, height, width)
+    return acc[:, :c] / (acc[:, c:] + 1e-7), acc[:, c:], zee
+
+
+class SplatFunction(torch.autograd.Function):
+    """The render as an autograd node with respect to the payload: the
+    forward is ``_render`` (six kernels on the card), the backward
+    ``splat_grad`` (the kernel ``splat_grad`` on the card). It saves the
+    points, mask, pose, degridded ``zee`` and weight sums; ``existing`` is
+    not differentiable. ``splat`` takes it for CUDA tensors when a gradient
+    is wanted; on CPU tensors it runs the plain versions, which the tests
+    hold to the plain autograd."""
+
+    @staticmethod
+    def forward(ctx, payload, xyz, valid, pose, height: int, width: int):
+        rendered, existing, zee = _render(xyz, payload, valid, pose, height,
+                                          width)
+        existing = existing.contiguous()
+        ctx.mark_non_differentiable(existing)
+        ctx.save_for_backward(xyz, valid, pose, zee, existing)
+        ctx.size = (height, width)
+        return rendered, existing
+
+    @staticmethod
+    def backward(ctx, grad_rendered, _grad_existing):
+        xyz, valid, pose, zee, existing = ctx.saved_tensors
+        grad = grad_rendered.float().contiguous()
+        return (splat_grad(xyz, valid, pose, zee, existing, grad, *ctx.size),
+                None, None, None, None, None)
+
+
+def splat(xyz, payload, valid, pose, height: int,
+          width: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Render one cloud at one pose.
+
+    ``xyz`` (N, 3), ``payload`` (N, C), ``valid`` (N,) or None, ``pose``
+    (5,), all f32 on one device. Returns (rendered (H, W, C), existing (H,
+    W, 1)). Differentiable with respect to ``payload`` (``SplatFunction`` on
+    the card, plain autograd on the CPU); raises if ``xyz``, ``valid`` or
+    ``pose`` requires a gradient. With no gradient wanted (no grad mode,
+    inference mode, or a payload that needs none) nothing is saved.
+    """
+    c = payload.shape[1]
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (xyz, valid, pose)):
+        raise ValueError("the splat is differentiable only with respect to "
+                         "the payload: xyz, valid and pose must not require "
+                         "a gradient")
+    if xyz.is_cuda and torch.is_grad_enabled() and payload.requires_grad:
+        rendered, existing = SplatFunction.apply(payload, xyz, valid, pose,
+                                                 height, width)
     else:
-        zee = degrid_plain(zee_plain(xyz, valid, pose, height, width))
-        acc = accumulate_plain(xyz, valid, payload, pose, zee, height, width)
-        rendered = acc[:, :c] / (acc[:, c:] + 1e-7)
+        rendered, existing, _ = _render(xyz, payload, valid, pose, height,
+                                        width)
     return (rendered.reshape(height, width, c),
-            acc[:, c:].reshape(height, width, 1))
+            existing.reshape(height, width, 1))
 
 
 def make_pose(shift: torch.Tensor, focal, baseline) -> torch.Tensor:

@@ -14,24 +14,36 @@ its bias-free ``conv`` (``conv1/conv/kernel``, ``conv1/bias``), and
 same rules, because the port's modules name their attributes as the Flax
 tree does.
 
+The discriminators add BatchNorm and spectral-norm state:
+
+  ``scale`` (BatchNorm, in ``params``)     -> ``scale``
+  ``mean``, ``var`` (in ``batch_stats``)   -> ``mean``, ``var``
+  ``SpectralNorm_<k>/<layer>/kernel/u``, ``.../sigma`` (in ``batch_stats``)
+                                           -> ``<layer>.u``, ``<layer>.sigma``
+
 The tree is nested dicts of numpy arrays (``jax.device_get`` of a Flax
-``params`` collection, or an orbax restore); a top-level ``{"params": ...}``
-wrapper is unwrapped.
+``params`` collection, or an orbax restore). A top-level ``{"params": ...}``
+wrapper is unwrapped; a ``{"params": ..., "batch_stats": ...}`` tree maps
+both collections. Any other leaf raises.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
 
-def state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    if set(tree.keys()) == {"params"}:
-        tree = tree["params"]
-    out: Dict[str, torch.Tensor] = {}
+_SPECTRAL = re.compile(r"SpectralNorm_\d+$")
 
+
+def _tensor(arr) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr, dtype=np.float32))
+
+
+def _params(tree: Mapping, out: Dict[str, torch.Tensor]) -> None:
     def walk(node: Mapping, prefix: str) -> None:
         for key, val in node.items():
             if isinstance(val, Mapping):
@@ -45,14 +57,45 @@ def state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
                 name, arr = "weight", arr.transpose(3, 2, 0, 1)
             elif key == "slope":
                 name = "weight"
-            elif key == "bias":
-                name = "bias"
+            elif key in ("bias", "scale"):
+                name = key
             else:
                 raise ValueError(f"unknown Flax leaf {prefix}{key}")
-            out[prefix + name] = torch.from_numpy(
-                np.ascontiguousarray(arr))
+            out[prefix + name] = _tensor(arr)
 
     walk(tree, "")
+
+
+def _batch_stats(tree: Mapping, out: Dict[str, torch.Tensor]) -> None:
+    def walk(node: Mapping, prefix: str) -> None:
+        for key, val in node.items():
+            if isinstance(val, Mapping) and _SPECTRAL.match(key):
+                for leaf, arr in val.items():
+                    parts = leaf.split("/")
+                    if (len(parts) != 3 or parts[1] != "kernel"
+                            or parts[2] not in ("u", "sigma")):
+                        raise ValueError(f"unknown spectral-norm leaf "
+                                         f"{prefix}{key}/{leaf}")
+                    out[f"{prefix}{parts[0]}.{parts[2]}"] = _tensor(arr)
+            elif isinstance(val, Mapping):
+                walk(val, f"{prefix}{key}.")
+            elif key in ("mean", "var"):
+                out[prefix + key] = _tensor(val)
+            else:
+                raise ValueError(f"unknown Flax batch_stats leaf "
+                                 f"{prefix}{key}")
+
+    walk(tree, "")
+
+
+def state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    if set(tree.keys()) == {"params"}:
+        tree = tree["params"]
+    elif set(tree.keys()) == {"params", "batch_stats"}:
+        _batch_stats(tree["batch_stats"], out)
+        tree = tree["params"]
+    _params(tree, out)
     return out
 
 

@@ -307,3 +307,78 @@ def test_autozoom_on_the_card_picks_the_cpu_window(cuda):
     assert dict(S.LAUNCHES) == {f"{k}/c3": 16 for k in (
         "fill", "zee", "degrid", "count", "place", "sum")}
     assert got == want
+
+
+def _grad_case(cuda, case, c):
+    """(xyz, valid, h, w) of a gradient case."""
+    if case in ("odd", "empty", "all_invalid", "no_mask"):
+        return _front_case(cuda, case)
+    h, w = 96, 128  # masked
+    xyz, _, valid = _cloud(cuda, h, w, c, seed=30 + c)
+    return xyz, valid, h, w
+
+
+@pytest.mark.parametrize("c", [1, 4, 68])
+@pytest.mark.parametrize("case", ["masked", "odd", "empty", "all_invalid",
+                                  "no_mask"])
+def test_splat_grad_matches_plain(cuda, case, c):
+    """``splat_grad`` against ``splat_grad_plain`` on the card's saved
+    forward and against the CPU's autograd of the plain render: bit-equal;
+    one ``grad`` launch a backward (none for no points); two backwards
+    equal."""
+    xyz, valid, h, w = _grad_case(cuda, case, c)
+    pose = S.make_pose(torch.tensor([1.5, -0.5, -4.0], device=cuda), 128.0,
+                       60.0)
+    g = torch.Generator().manual_seed(c)
+    payload = torch.rand(xyz.shape[0], c, generator=g).to(cuda)
+    upstream = torch.rand(h, w, c, generator=g).to(cuda)
+    _, existing, zee = S._render(xyz, payload, valid, pose, h, w)
+    existing = existing.contiguous()
+    S.LAUNCHES.clear()
+    got = S.grad_cuda(xyz, valid, pose, zee, existing,
+                      upstream.reshape(-1, c), h, w)
+    assert dict(S.LAUNCHES) == ({} if case == "empty" else {f"grad/c{c}": 1})
+    want = S.splat_grad_plain(xyz, valid, pose, zee, existing,
+                              upstream.reshape(-1, c), h, w)
+    assert torch.equal(got, want)
+    again = S.grad_cuda(xyz, valid, pose, zee, existing,
+                        upstream.reshape(-1, c), h, w)
+    assert torch.equal(got, again)
+    # the CPU's plain autograd of the whole render
+    cpu = payload.cpu().requires_grad_(True)
+    rendered, _ = S.splat(xyz.cpu(), cpu,
+                          None if valid is None else valid.cpu(), pose.cpu(),
+                          h, w)
+    (rendered * upstream.cpu()).sum().backward()
+    assert torch.equal(got.cpu(), cpu.grad)
+    if case == "masked":
+        assert (got != 0).any()
+
+
+def test_render_pointcloud_trains_through_the_kernel(cuda):
+    """On the card the render has a ``grad_fn`` (``SplatFunction``), each
+    item's backward is one ``splat_grad`` launch, and the payload's
+    gradient is the CPU's; a payload row whose start is not 16 B aligned
+    (C = 5) is cloned for the sum pass, and its gradient still reaches the
+    caller's tensor."""
+    h, w, b, c = 41, 51, 2, 5
+    xyz, _, _ = _cloud(cuda, h, w, 1, seed=40)
+    xyz = torch.stack([xyz, xyz + 0.3])
+    g = torch.Generator().manual_seed(41)
+    data = torch.rand(b, h * w, c, generator=g).to(cuda).requires_grad_(True)
+    upstream = torch.rand(b, h, w, c, generator=g).to(cuda)
+    S.LAUNCHES.clear()
+    rendered, existing = S.render_pointcloud(xyz, data, h, w, 128.0, 60.0)
+    assert rendered.grad_fn is not None and not existing.requires_grad
+    (rendered * upstream).sum().backward()
+    assert S.LAUNCHES[f"grad/c{c}"] == b
+    assert data.grad is not None and bool((data.grad != 0).any())
+    cpu = data.detach().cpu().requires_grad_(True)
+    r_cpu, _ = S.render_pointcloud(xyz.cpu(), cpu, h, w, 128.0, 60.0)
+    (r_cpu * upstream.cpu()).sum().backward()
+    assert torch.equal(data.grad.cpu(), cpu.grad)
+    with torch.inference_mode():
+        S.LAUNCHES.clear()
+        r_inf, _ = S.render_pointcloud(xyz, data.detach(), h, w, 128.0, 60.0)
+    assert torch.equal(r_inf, rendered.detach())
+    assert "grad/c5" not in S.LAUNCHES

@@ -20,8 +20,15 @@ def test_port_imports_no_jax_and_no_kbe_tpu():
             "kbe_torch.pipeline.video, kbe_torch.ops.splat_routed, "
             "kbe_torch.ops.splat_banded, kbe_torch.ops.legacy, "
             "kbe_torch.models.partial_conv, "
-            "kbe_torch.utils.reference_convert\n"
-            "import cli.kbe_torch\n"
+            "kbe_torch.utils.reference_convert, kbe_torch.ops.visibility, "
+            "kbe_torch.models.vgg, kbe_torch.models.discriminator, "
+            "kbe_torch.models.init, kbe_torch.utils.logging, "
+            "kbe_torch.train, kbe_torch.train.data, "
+            "kbe_torch.train.losses, kbe_torch.train.metrics, "
+            "kbe_torch.train.view_synthesis, kbe_torch.train.checkpoint, "
+            "kbe_torch.train.trainer_depth, "
+            "kbe_torch.train.trainer_inpaint\n"
+            "import cli.kbe_torch, cli.train_torch\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'kbe_tpu'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -30,14 +37,17 @@ def test_port_imports_no_jax_and_no_kbe_tpu():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-def test_default_device_raises_without_a_gpu(monkeypatch):
+def test_default_device_raises_without_a_gpu(monkeypatch, tmp_path):
     from kbe_torch.pipeline import KenBurnsPipeline, build_effect_fn
+    from kbe_torch.train.trainer_inpaint import TrainerInpaint
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         KenBurnsPipeline.create(0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_effect_fn(64, 64, ZoomSettings.default_3d(64, 64))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainerInpaint({}, logs_path=str(tmp_path / "runs"))
 
 
 def test_unsupported_effects_raise():
@@ -82,5 +92,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     xyz = torch.zeros(8, 3)
     with pytest.raises(ValueError):
         S.front_cuda(xyz, torch.ones(8), torch.zeros(5), 4, 4, 4)
+    with pytest.raises(ValueError):
+        S.grad_cuda(xyz, None, torch.zeros(5), torch.zeros(4, 4),
+                    torch.zeros(16), torch.zeros(16, 4), 4, 4)
     with pytest.raises(ValueError):
         D.fill_cuda(torch.zeros(4, 4, 4), torch.zeros(4, 4, 1), 16)
