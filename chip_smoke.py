@@ -49,15 +49,39 @@ Phases, in order; any failure raises and the script exits non-zero:
          steps, then one D-only and two G+D adversarial iterations; ms a
          step, finite losses, moved parameters and launches checked (six
          forward splat kernels a batch item, one ``splat_grad`` a batch
-         item on a G step); ``splat_grad`` against ``splat_grad_plain`` and
-         the CPU's autograd on the step's own cloud (C=68) and on a masked
-         C=4 cloud, and its row;
+         item on a G step). Three such runs: two from one seed under
+         ``torch.use_deterministic_algorithms(True)``, whose losses and
+         final states must be bit-equal, then one with cuDNN free to pick
+         its algorithms (the step times give the cost of determinism); ``splat_grad`` against ``splat_grad_plain`` and the
+         CPU's autograd on the step's own cloud (C=68) and on a masked C=4
+         cloud, and its row;
+     (u) depth training at full width through the same CLI's trainer and
+         data: 3 estimation steps at 384x512, batch 8, with the 'same'
+         mask loss and one with 'other' added (full Semantics and
+         Disparity lattice), twice from one seed, bit-equal; 3 refinement
+         steps at 768x1024, batch 8 (full Refine behind the frozen
+         Disparity); ms a step, finite losses, moved parameters, no splat
+         launch; a validation of each mode (7 metrics) and its peak memory;
+     (v) evaluation: the adversarial trainer's ``validation_adv`` of (t)
+         over 4 validation batches with a real 2048-d FID (Inception on the
+         card, ``sqrtm`` on the host, each timed; six forward splat kernels
+         a batch item); ``InpaintEval.eval`` and
+         ``get_inpaint(output_render_c=True)`` on (t)'s nets, whose halfway
+         view C (``generate_view_c``, C=4 over two merged clouds) is
+         bit-equal to the same function on the CPU, then timed as its
+         row; ``DepthEval.eval`` of (u)'s nets on two batches at 768x1024;
   7. the ``{"kernels": [...]}`` line, then the device line last. A row's
      ``launches`` are those of the run named in its ``path``, counted from
      zero just before that run. ``ms`` is the call's time (CUDA events
      around the Python wrapper), ``device_ms`` the time of the row's own
      kernels on the device (``torch.profiler`` over the same number of
      calls), ``device_all_ms`` that of every kernel the call launches.
+
+The later phases take ``size`` and ``device`` arguments, so each runs
+alone on the card, or at a small size on the CPU, from Python (the kernels
+build at first use): ``CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 -c "import
+chip_smoke as cs; t = cs.training_phase([]); cs.evaluation_phase([], t,
+cs.depth_phase())"`` runs (t), (u) and (v) alone.
 
 Tolerances: none. Every kernel is exact (``splat_grad`` too, against the
 plain gather on the card and the CPU's autograd of the plain render): the
@@ -1117,12 +1141,13 @@ SUP_STEPS = 3
 SPLAT_SPEC = "kbe_tpu/ops/splat.py:106"   # _accumulate_pass, under jax.grad
 
 
-def _train_args(mode: str, device: str, logs: str):
+def _train_args(mode: str, device: str, logs: str, *more,
+                batch: int = TRAIN_BATCH):
     from cli import train_torch as cli
 
     return cli.build_parser().parse_args(
         ["--training-mode", mode, "--synthetic", "--device", device,
-         "--batch-size", str(TRAIN_BATCH), "--logs-path", logs])
+         "--batch-size", str(batch), "--logs-path", logs, *more])
 
 
 def _params_of(state):
@@ -1151,96 +1176,200 @@ def _sync(device: str):
         torch.cuda.synchronize()
 
 
-def training_phase(rows, size=TRAIN_SIZE, device: str = "cuda"):
-    """(t) inpainting training, the path of ``cli/train_torch.py`` (its
-    trainer, its synthetic data) at full width: ``ContextNet``, the full
-    ``Inpaint`` grid-net, ``MPDDiscriminator`` with spectral norm and its
-    VGG16, ``size``, batch 8. Three supervised steps, then three
-    adversarial iterations with ``pretrain_steps=0`` and ``balance_steps=1``
-    (one D-only, two G+D). Each step: ms, finite losses, parameters moved,
-    its launches (none in a supervised step, whose masks are plain
-    PyTorch; six forward splat kernels a batch item in an adversarial one,
-    and one ``grad`` a batch item in a G+D one). Then ``splat_grad`` on
-    the last step's own cloud (C=68) and on a masked C=4 cloud, against
-    ``splat_grad_plain`` and the CPU's autograd, and its row. Returns the
-    launch counts of the G+D iterations."""
-    import tempfile
-
+def _deterministic(on: bool, device: str):
+    """Deterministic algorithms everywhere (they raise where an op has
+    none) and cuDNN's deterministic convolutions, or cuDNN free to pick its
+    fastest ones, as the trainers ran it before they fixed the choice."""
     import torch
+
+    if device == "cuda":
+        torch.use_deterministic_algorithms(on)
+        torch.backends.cudnn.deterministic = on
+
+
+def _step(label, fn, before_states, device, want_counts):
+    """Run one training step ``fn()``; check its launches and that the
+    states moved; returns (result, ms, losses)."""
+    clear_launches()
+    befores = [_params_of(st) for st in before_states]
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    if device != "cuda":  # a rehearsal: the plain path counts none
+        want_counts = {}
+    expect_counts(label, want_counts)
+    moved = [_moved(b, st) for b, st in zip(befores, before_states)]
+    return out, ms, moved
+
+
+class TrainRun:
+    """What one run of (t) leaves: its losses and step times in order,
+    its final states, and the adversarial trainer, state and last batch
+    for the backward kernel's check and for (v)."""
+
+    def __init__(self):
+        self.losses, self.times, self.states = [], [], []
+
+    def record(self, kind, ms, losses):
+        self.times.append((kind, ms))
+        self.losses.append((kind, losses))
+
+
+def _train_once(size, device: str, deterministic: bool, logs: str,
+                quiet: bool = False) -> TrainRun:
+    """Three supervised steps, then three adversarial iterations with
+    ``pretrain_steps=0`` and ``balance_steps=1`` (one D-only, two G+D),
+    from the CLI's seeds and data."""
     from cli import train_torch as cli
     from kbe_torch.train.trainer_inpaint import TRAIN_CAMERA, to_device
 
     h, w = size
-    n, b = h * w, TRAIN_BATCH
-    with tempfile.TemporaryDirectory() as logs:
-        # supervised
-        args = _train_args("inpainting", device, logs + "/sup")
-        cli.SYNTHETIC_SIZE["inpainting"] = size
-        trainer = cli.make_trainer(args)
-        data, _, _ = cli.make_data(args, "inpainting", TRAIN_CAMERA)
-        state = trainer.init_state(size)
-        for i in range(SUP_STEPS):
-            batch = to_device(next(data), trainer.device)
-            before = _params_of(state)
-            clear_launches()
-            _sync(device)
-            t0 = time.perf_counter()
-            state, metrics = trainer.supervised_step(state, batch)
-            _sync(device)
-            ms = (time.perf_counter() - t0) * 1e3
-            expect_counts(f"(t) supervised step {i}", {})
-            losses = _check_losses(f"(t) supervised step {i}", metrics)
-            moved = _moved(before, state)
-            if not moved > 0.0:
-                raise AssertionError(f"(t) supervised step {i}: parameters "
-                                     "did not move")
-            log(f"(t) supervised step {i} at {h}x{w}, batch {b}: {ms:.1f} ms;"
-                f" losses {json.dumps(losses)}; parameters moved (max "
-                f"{moved:.3g}); launches none (masks in plain PyTorch)")
-        del state, trainer
+    b = TRAIN_BATCH
+    run = TrainRun()
+    tag = "deterministic" if deterministic else "cuDNN free"
+    say = (lambda *a: None) if quiet else log
+    _deterministic(deterministic, device)
+    # supervised
+    args = _train_args("inpainting", device, logs + "/sup")
+    cli.SYNTHETIC_SIZE["inpainting"] = size
+    trainer = cli.make_trainer(args)
+    _deterministic(deterministic, device)  # the trainer fixed cuDNN's
+    data, _, _ = cli.make_data(args, "inpainting", TRAIN_CAMERA)
+    state = trainer.init_state(size)
+    for i in range(SUP_STEPS):
+        batch = to_device(next(data), trainer.device)
+        label = f"(t) supervised step {i}"
+        (state, metrics), ms, (moved,) = _step(
+            label, lambda: trainer.supervised_step(state, batch), [state],
+            device, {})
+        losses = _check_losses(label, metrics)
+        if not moved > 0.0:
+            raise AssertionError(f"{label}: parameters did not move")
+        run.record("supervised", ms, losses)
+        say(f"{label} at {h}x{w}, batch {b}, {tag}: {ms:.1f} ms; losses "
+            f"{json.dumps(losses)}; parameters moved (max {moved:.3g}); "
+            "launches none (masks in plain PyTorch)")
+    run.states.append(state)
+    del trainer
 
-        # adversarial
-        args = _train_args("inpainting_ref", device, logs + "/adv")
-        trainer = cli.make_trainer(args, pretrain_steps=0, balance_steps=1)
-        data, _, _ = cli.make_data(args, "inpainting", TRAIN_CAMERA)
-        g_state = trainer.init_state(size)
-        d_state = trainer.init_disc_state(size)
-        gd_counts = {}
-        for i in range(3):
-            batch = to_device(next(data), trainer.device)
-            do_g = trainer._want_g_update()
-            if do_g != (i > 0):
-                raise AssertionError(f"(t) iteration {i}: G update {do_g}")
-            g_before, d_before = _params_of(g_state), _params_of(d_state)
-            clear_launches()
-            _sync(device)
-            t0 = time.perf_counter()
-            g_state, d_state, metrics = trainer.adversarial_step(
-                g_state, d_state, batch, do_g)
-            _sync(device)
-            ms = (time.perf_counter() - t0) * 1e3
-            counts = launch_counts()
-            want = splat_counts(68, b)
-            if do_g:
-                want[GRAD_KEY] = b
-                for k, v in counts.items():
-                    gd_counts[k] = gd_counts.get(k, 0) + v
-            if device != "cuda":  # a rehearsal: the plain path counts none
-                want = {}
-            expect_counts(f"(t) adversarial iteration {i}", want)
-            trainer.iter_nb += 1
-            kind = "G+D" if do_g else "D-only"
-            losses = _check_losses(f"(t) {kind} iteration {i}", metrics)
-            g_moved, d_moved = _moved(g_before, g_state), _moved(d_before,
-                                                                 d_state)
-            if not d_moved > 0.0 or (g_moved > 0.0) != do_g:
-                raise AssertionError(f"(t) {kind} iteration {i}: G moved "
-                                     f"{g_moved}, D moved {d_moved}")
-            log(f"(t) {kind} iteration {i} at {h}x{w}, batch {b}: {ms:.1f} "
-                f"ms; losses {json.dumps(losses)}; G moved {g_moved:.3g}, D "
-                f"moved {d_moved:.3g}; launches {json.dumps(counts)}")
-        grad_phase(rows, trainer, g_state, batch, gd_counts, device)
-    return gd_counts
+    # adversarial
+    args = _train_args("inpainting_ref", device, logs + "/adv")
+    trainer = cli.make_trainer(args, pretrain_steps=0, balance_steps=1)
+    _deterministic(deterministic, device)
+    data, _, _ = cli.make_data(args, "inpainting", TRAIN_CAMERA)
+    g_state = trainer.init_state(size)
+    d_state = trainer.init_disc_state(size)
+    run.gd_counts = {}
+    for i in range(3):
+        batch = to_device(next(data), trainer.device)
+        do_g = trainer._want_g_update()
+        if do_g != (i > 0):
+            raise AssertionError(f"(t) iteration {i}: G update {do_g}")
+        kind = "G+D" if do_g else "D-only"
+        want = splat_counts(68, b)
+        if do_g:
+            want[GRAD_KEY] = b
+        label = f"(t) {kind} iteration {i}"
+        (g_state, d_state, metrics), ms, (g_moved, d_moved) = _step(
+            label, lambda: trainer.adversarial_step(g_state, d_state, batch,
+                                                    do_g),
+            [g_state, d_state], device, want)
+        counts = launch_counts()
+        if do_g:
+            for k, v in counts.items():
+                run.gd_counts[k] = run.gd_counts.get(k, 0) + v
+        trainer.iter_nb += 1
+        losses = _check_losses(label, metrics)
+        if not d_moved > 0.0 or (g_moved > 0.0) != do_g:
+            raise AssertionError(f"{label}: G moved {g_moved}, D moved "
+                                 f"{d_moved}")
+        run.record(kind, ms, losses)
+        say(f"{label} at {h}x{w}, batch {b}, {tag}: {ms:.1f} ms; losses "
+            f"{json.dumps(losses)}; G moved {g_moved:.3g}, D moved "
+            f"{d_moved:.3g}; launches {json.dumps(counts)}")
+    run.states += [g_state, d_state]
+    run.trainer, run.g_state, run.batch = trainer, g_state, batch
+    _deterministic(False, device)
+    return run
+
+
+def _module_states(state):
+    """Every tensor of a trainer state's modules (parameters, the
+    discriminator's batch and spectral norms) and its optimizer moments."""
+    mods = [getattr(state, k) for k in ("context", "net", "disc")
+            if hasattr(state, k)]
+    out = [t for m in mods for t in m.state_dict().values()]
+    return out + list(state.opt_state["mu"]) + list(state.opt_state["nu"])
+
+
+def assert_runs_equal(label, a: TrainRun, b: TrainRun):
+    """Two runs from one seed: every loss and every tensor of the final
+    states bit-equal."""
+    import torch
+
+    if a.losses != b.losses:
+        raise AssertionError(f"{label}: losses differ between two runs: "
+                             f"{a.losses} vs {b.losses}")
+    n = 0
+    for sa, sb in zip(a.states, b.states):
+        for x, y in zip(_module_states(sa), _module_states(sb)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{label}: a state tensor differs "
+                                     f"between two runs, max diff "
+                                     f"{max_err(x, y)}")
+            n += 1
+    log(f"{label}: two runs from one seed bit-equal: {len(a.losses)} steps'"
+        f" losses and {n} tensors of the final states (parameters, norm "
+        "state, Adam moments)")
+
+
+def _step_ms(run: TrainRun):
+    """{kind: [ms, ...]} of a run, in order."""
+    out = {}
+    for kind, ms in run.times:
+        out.setdefault(kind, []).append(round(ms, 1))
+    return out
+
+
+def training_phase(rows, size=TRAIN_SIZE, device: str = "cuda"):
+    """(t) inpainting training, the path of ``cli/train_torch.py`` (its
+    trainer, its synthetic data) at full width: ``ContextNet``, the full
+    ``Inpaint`` grid-net, ``MPDDiscriminator`` with spectral norm and its
+    VGG16, ``size``, batch 8. A run is three supervised steps, then three
+    adversarial iterations with ``pretrain_steps=0`` and
+    ``balance_steps=1`` (one D-only, two G+D); each step: ms, finite
+    losses, parameters moved, its launches (none in a supervised step,
+    whose masks are plain PyTorch; six forward splat kernels a batch item
+    in an adversarial one, and one ``grad`` a batch item in a G+D one).
+    Three runs: two under ``torch.use_deterministic_algorithms(True)`` from
+    one seed, whose losses and final states must be bit-equal, then one
+    with cuDNN free to pick its algorithms, as the trainer ran before it
+    fixed them; the step times of the second and the third (both warm)
+    give the cost of determinism. Then ``splat_grad`` on the
+    last step's own cloud (C=68) and on a masked C=4 cloud, against
+    ``splat_grad_plain`` and the CPU's autograd, and its row. Returns the
+    last run (its adversarial trainer and state go on to (v))."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as logs:
+        first = _train_once(size, device, True, logs + "/det1")
+        second = _train_once(size, device, True, logs + "/det2", quiet=True)
+        assert_runs_equal("(t) training", first, second)
+        del first
+        free = _train_once(size, device, False, logs + "/free")
+        log(f"(t) ms a step, deterministic (second run): "
+            f"{json.dumps(_step_ms(second))}; cuDNN free (third run): "
+            f"{json.dumps(_step_ms(free))}")
+        del free
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        grad_phase(rows, second.trainer, second.g_state, second.batch,
+                   second.gd_counts, device)
+    return second
 
 
 GRAD_KEY = "grad/c68"
@@ -1361,7 +1490,401 @@ def grad_phase(rows, trainer, g_state, batch, gd_counts, device):
     rows.append(row)
 
 
+ESTIMATION_SIZE = (384, 512)  # cli/train_torch.py's synthetic sizes
+REFINE_SIZE = (768, 1024)
+DEPTH_STEPS = 3
+
+
+def _peak_gib(device: str) -> float:
+    import torch
+
+    if device != "cuda":
+        return float("nan")
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _reset_peak(device: str) -> None:
+    import torch
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _check_metrics(label, metrics, names):
+    values = _check_losses(label, metrics)
+    if set(values) != set(names):
+        raise AssertionError(f"{label}: metrics {sorted(values)}")
+    return values
+
+
+def _estimation_once(size, device: str, logs: str,
+                     quiet: bool = False) -> TrainRun:
+    """(u) estimation through the CLI's trainer and data: the full
+    ``Semantics`` and ``Disparity`` lattice, ``size``, batch 8; three steps
+    with the 'same' mask loss, then one that adds the 'other' step on the
+    auxiliary batch; then a validation."""
+    from cli import train_torch as cli
+    from kbe_torch.config import CameraConfig
+    from kbe_torch.train.metrics import DEPTH_METRIC_NAMES
+    from kbe_torch.train.trainer_inpaint import to_device
+
+    h, w = size
+    run = TrainRun()
+    say = (lambda *a: None) if quiet else log
+    args = _train_args("estimation", device, logs, "--mask-loss", "same")
+    cli.SYNTHETIC_SIZE["disparity"] = size
+    trainer = cli.make_trainer(args)
+    _deterministic(True, device)
+    data, val, _ = cli.make_data(args, "disparity",
+                                 CameraConfig(512.0, 74.0))
+    _reset_peak(device)
+    state = trainer.init_state(size)
+    for i in range(DEPTH_STEPS + 1):
+        batch = next(data)
+        aux = to_device(batch.pop("imagenet"), trainer.device)
+        batch = to_device(batch, trainer.device)
+        other = i == DEPTH_STEPS
+
+        def step():
+            st, m = trainer.disparity_train_step(state, batch)
+            if other:
+                st, m2 = trainer.imagenet_mask_step(st, aux)
+                m = dict(m, mask_other=m2["mask"])
+            return st, m
+
+        loss_kind = "same + other" if other else "same"
+        label = f"(u) estimation step {i} ({loss_kind})"
+        (state, metrics), ms, (moved,) = _step(label, step, [state], device,
+                                               {})
+        losses = _check_losses(label, metrics)
+        if not moved > 0.0:
+            raise AssertionError(f"{label}: parameters did not move")
+        run.record("estimation", ms, losses)
+        say(f"{label} at {h}x{w}, batch {TRAIN_BATCH}: {ms:.1f} ms; losses "
+            f"{json.dumps(losses)}; parameters moved (max {moved:.3g}); "
+            f"launches none; step count {state.step}, optimizer count "
+            f"{state.opt_state['count']}")
+    if state.step != DEPTH_STEPS + 2 or state.opt_state["count"] != \
+            state.step:
+        raise AssertionError(f"(u) estimation: step {state.step}, count "
+                             f"{state.opt_state['count']}")
+    _sync(device)
+    t0 = time.perf_counter()
+    metrics = _check_metrics("(u) estimation validation",
+                             trainer.validation(state, val()),
+                             DEPTH_METRIC_NAMES)
+    _sync(device)
+    say(f"(u) estimation validation, 4 batches of {TRAIN_BATCH} at {h}x{w}:"
+        f" {time.perf_counter() - t0:.2f} s; {json.dumps(metrics)}; peak "
+        f"memory {_peak_gib(device):.2f} GiB")
+    run.states.append(state)
+    run.trainer = trainer
+    _deterministic(False, device)
+    return run
+
+
+def _refinement(size, device: str, logs: str, batch: int):
+    """(u) refinement: three steps of the full ``Refine`` behind the frozen
+    full ``Disparity`` at ``size``, then a validation. Returns the trainer
+    and its states."""
+    from cli import train_torch as cli
+    from kbe_torch.config import CameraConfig
+    from kbe_torch.train.metrics import DEPTH_METRIC_NAMES
+    from kbe_torch.train.trainer_inpaint import to_device
+
+    h, w = size
+    args = _train_args("refinement", device, logs, batch=batch)
+    cli.SYNTHETIC_SIZE["refine"] = size
+    trainer = cli.make_trainer(args)
+    _deterministic(True, device)  # as the CLI trains
+    data, val, _ = cli.make_data(args, "refine", CameraConfig(512.0, 74.0))
+    _reset_peak(device)
+    dstate, rstate = trainer.init_state(size, "refine")
+    frozen = _params_of(dstate)
+    for i in range(DEPTH_STEPS):
+        b = next(data)
+        b.pop("imagenet", None)
+        b = to_device(b, trainer.device)
+        label = f"(u) refinement step {i}"
+        (rstate, metrics), ms, (moved,) = _step(
+            label, lambda: trainer.refine_train_step(dstate, rstate, b),
+            [rstate], device, {})
+        losses = _check_losses(label, metrics)
+        if not moved > 0.0:
+            raise AssertionError(f"{label}: parameters did not move")
+        log(f"{label} at {h}x{w}, batch {batch}: {ms:.1f} ms; losses "
+            f"{json.dumps(losses)}; parameters moved (max {moved:.3g}); "
+            "launches none")
+    if _moved(frozen, dstate) != 0.0:
+        raise AssertionError("(u) refinement moved the disparity net")
+    _sync(device)
+    t0 = time.perf_counter()
+    metrics = _check_metrics("(u) refinement validation",
+                             trainer.validation(dstate, val(), rstate),
+                             DEPTH_METRIC_NAMES)
+    _sync(device)
+    log(f"(u) refinement validation, 4 batches of {batch} at {h}x{w}: "
+        f"{time.perf_counter() - t0:.2f} s; {json.dumps(metrics)}; peak "
+        f"memory {_peak_gib(device):.2f} GiB")
+    _deterministic(False, device)
+    return trainer, dstate, rstate
+
+
+def depth_phase(est_size=ESTIMATION_SIZE, ref_size=REFINE_SIZE,
+                device: str = "cuda"):
+    """(u) depth training at full width through ``cli/train_torch.py``'s
+    trainer and synthetic data: estimation at ``est_size``, run twice from
+    one seed under deterministic algorithms (bit-equal), then refinement at
+    ``ref_size`` at the CLI's batch of 8, or the largest batch that fits
+    (said on its line). No step launches a splat kernel. Returns the
+    refinement's (trainer, disparity state, refine state) for (v)."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as logs:
+        first = _estimation_once(est_size, device, logs + "/e1")
+        second = _estimation_once(est_size, device, logs + "/e2",
+                                  quiet=True)
+        assert_runs_equal("(u) estimation", first, second)
+        log(f"(u) estimation ms a step: {json.dumps(_step_ms(first))}, "
+            f"second run {json.dumps(_step_ms(second))}")
+        del first, second
+        batch = TRAIN_BATCH
+        while True:
+            try:
+                out = _refinement(ref_size, device, logs + f"/r{batch}",
+                                  batch)
+                break
+            except torch.cuda.OutOfMemoryError:
+                if batch == 1:
+                    raise
+                batch //= 2
+                torch.cuda.empty_cache()
+                log(f"(u) refinement: out of memory; the batch is cut to "
+                    f"{batch}")
+        if batch != TRAIN_BATCH:
+            log(f"(u) refinement ran at batch {batch}, the largest that "
+                f"fits, not the CLI's {TRAIN_BATCH}")
+    return out
+
+
+def flax_tree(module):
+    """The Flax-shaped tree of a port module of convolutions and PReLUs:
+    the inverse of ``state_dict_from_flax``, to hand trained nets to the
+    evaluation modules, which take such trees."""
+    import torch.nn as nn
+
+    tree = {}
+    for name, m in module.named_modules():
+        if isinstance(m, nn.Conv2d):
+            leaf = {"kernel": m.weight.detach().permute(2, 3, 1, 0)}
+            if m.bias is not None:
+                leaf["bias"] = m.bias.detach()
+        elif isinstance(m, nn.PReLU):
+            leaf = {"slope": m.weight.detach()}
+        else:
+            continue
+        *path, last = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = {k: v.float().cpu().numpy() for k, v in leaf.items()}
+    return {"params": tree}
+
+
+VIEW_C_KEY = "sum/c4"
+
+
+def _timed_calls(fn, sink, device):
+    """``fn`` wrapped to add its host seconds (after a device sync) to
+    ``sink``."""
+    def wrapped(*args, **kwargs):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        _sync(device)
+        sink.append(time.perf_counter() - t0)
+        return out
+    return wrapped
+
+
+def evaluation_phase(rows, trained: TrainRun, depth, size=TRAIN_SIZE,
+                     device: str = "cuda"):
+    """(v) evaluation:
+    - ``validation_adv`` of (t)'s adversarial trainer over the CLI's 4
+      validation batches at ``size``, batch 8, with a real 2048-d FID:
+      the FID, the seconds of the Inception activations on the card and of
+      the Fréchet distance (its ``sqrtm``) on the host, and the splat
+      launches (six forward kernels a batch item);
+    - ``InpaintEval`` of (t)'s trained nets: ``eval(compute_fid=False)`` and
+      ``get_inpaint(output_render_c=True)`` on one batch, whose view C
+      (``generate_view_c``, 2N points, C=4) is bit-equal to the same
+      function on the CPU, then timed as its row;
+    - ``DepthEval`` of (u)'s refinement nets on two batches at 768x1024."""
+    import math
+
+    import numpy as np
+    import torch
+    from cli import train_torch as cli
+    from kbe_torch.config import CameraConfig
+    from kbe_torch.ops.geometry import disparity_to_depth
+    from kbe_torch.train.eval_depth import DepthEval
+    from kbe_torch.train.eval_inpaint import InpaintEval, generate_view_c
+    from kbe_torch.train.fid import FID
+    from kbe_torch.train.metrics import DEPTH_METRIC_NAMES
+    from kbe_torch.train.trainer_inpaint import TRAIN_CAMERA, to_device
+
+    h, w = size
+    b = TRAIN_BATCH
+    trainer, g_state = trained.trainer, trained.g_state
+    args = _train_args("inpainting_ref", device, os.devnull)
+    cli.SYNTHETIC_SIZE["inpainting"] = size
+    _, val, _ = cli.make_data(args, "inpainting", TRAIN_CAMERA)
+
+    # validation_adv with a real FID; the FID built as the trainer builds
+    # it, its two halves timed
+    fid = FID(trainer.hparams.get("inception_params"), device=device)
+    card_s, host_s = [], []
+    fid.activations = _timed_calls(fid.activations, card_s, device)
+    fid.frechet_distance = _timed_calls(fid.frechet_distance, host_s,
+                                        device)
+    trainer._fid = fid
+    clear_launches()
+    t0 = time.perf_counter()
+    score = trainer.validation_adv(g_state, val())
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    expect_counts("(v) validation_adv", splat_counts(68, 4 * b)
+                  if device == "cuda" else {})
+    if not (math.isfinite(score) and score > 0.0):
+        raise AssertionError(f"(v) validation_adv: FID {score}")
+    log(f"(v) validation_adv, 4 batches of {b} at {h}x{w}: FID "
+        f"{score:.6g} (2048-d); {wall:.2f} s, of which Inception "
+        f"activations {sum(card_s):.3f} s on the card ({len(card_s)} calls of"
+        f" {2 * b * 4 // len(card_s)} images at 299^2) and the Fréchet "
+        f"distance {sum(host_s):.3f} s on the host (scipy sqrtm of 2048^2);"
+        f" launches {json.dumps(counts)}")
+
+    # InpaintEval of (t)'s nets
+    cam = trainer.camera
+    ev = InpaintEval({"context": flax_tree(g_state.context),
+                      "net": flax_tree(g_state.net)}, camera=cam,
+                     device=device)
+    batch = next(val())
+    metrics = _check_losses("(v) InpaintEval.eval",
+                            ev.eval([batch], compute_fid=False))
+    clear_launches()
+    out = ev.get_inpaint(batch, output_render_c=True)
+    counts = launch_counts()
+    want = splat_counts(68, b)
+    want.update(splat_counts(4, b))
+    expect_counts("(v) get_inpaint", want if device == "cuda" else {})
+    for k, v in out.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"(v) get_inpaint: {k} not finite")
+    covered = float((out["mask_c"] > 0).mean())
+    log(f"(v) InpaintEval at {h}x{w}, batch {b}: eval(compute_fid=False) "
+        f"{json.dumps(metrics)}; get_inpaint(output_render_c=True) "
+        f"{sorted(out)}, view C covered {covered:.4f}; launches "
+        f"{json.dumps(counts)}")
+
+    # view C on the card against the same function on the CPU
+    with torch.no_grad():
+        tb = to_device(batch, ev.device)
+        out_img, out_disp, real, mask_b, pts_a, shift = \
+            ev._adversarial_forward(tb)
+        depth_b = disparity_to_depth(out_disp, cam.focal, cam.baseline)
+        inputs = (pts_a, real, tb["depth"], out_img, depth_b, mask_b, shift)
+        clear_launches()
+        r_k, w_k = generate_view_c(*inputs, cam, h, w)
+        view_counts = launch_counts()
+        r_p, w_p = generate_view_c(*(t.cpu() for t in inputs), cam, h, w)
+    assert_equal("(v) view C render", r_k, r_p)
+    assert_equal("(v) view C weights", w_k, w_p)
+    log(f"(v) generate_view_c at {h}x{w}, batch {b}, 2x{h * w} points, C=4: "
+        "render and weights bit-equal to the CPU's")
+    if device == "cuda":
+        view_c_row(rows, inputs, cam, h, w, view_counts)
+
+    # DepthEval of (u)'s nets
+    dtrainer, dstate, rstate = depth
+    de = DepthEval({"semantics": flax_tree(dtrainer.semantics),
+                    "disparity": flax_tree(dstate.net),
+                    "refine": flax_tree(rstate.net)}, device=device)
+    dargs = _train_args("refinement", device, os.devnull)
+    _, dval, dsize = cli.make_data(dargs, "refine",
+                                   CameraConfig(512.0, 74.0))
+    it = dval()
+    batches = [next(it), next(it)]
+    _sync(device)
+    t0 = time.perf_counter()
+    dm = _check_metrics("(v) DepthEval", de.eval(batches),
+                        DEPTH_METRIC_NAMES)
+    _sync(device)
+    log(f"(v) DepthEval, 2 batches of {b} at {dsize[0]}x{dsize[1]}: "
+        f"{time.perf_counter() - t0:.2f} s; {json.dumps(dm)}")
+
+
+def view_c_row(rows, inputs, cam, h: int, w: int, counts):
+    """The row of view C's render: one batch item's merged cloud (2N
+    points, no mask, C=4) through ``splat`` as ``render_pointcloud`` calls
+    it, timed, its kernels' device time, the plain passes on the card, and
+    its bound (each byte in and out once)."""
+    import torch
+    from kbe_torch.ops import splat as S
+    from kbe_torch.ops.geometry import depth_to_points
+
+    pts_a, real, depth_a, out_img, depth_b, _, shift = inputs
+    pts_b = depth_to_points(depth_b[0, ..., 0], cam.focal).reshape(-1, 3) \
+        - shift[0]
+    xyz = (torch.cat([pts_a[0], pts_b]) + shift[0] / 2.0).contiguous()
+    payload = torch.cat([
+        torch.cat([real[0].reshape(-1, 3), out_img[0].reshape(-1, 3)]),
+        torch.cat([depth_a[0].reshape(-1, 1), depth_b[0].reshape(-1, 1)])],
+        dim=-1).contiguous()
+    pose = S.make_pose(torch.zeros(3, device=xyz.device), cam.focal,
+                       cam.baseline)
+    n, c = payload.shape
+
+    def plain():
+        zee = S.degrid_plain(S.zee_plain(xyz, None, pose, h, w))
+        acc = S.accumulate_plain(xyz, None, payload, pose, zee, h, w)
+        return acc[:, :c] / (acc[:, c:] + 1e-7), acc[:, c:]
+
+    fn = lambda: S.splat(xyz, payload, None, pose, h, w)
+    reps = 20
+    ms = timed(fn, reps)
+    dev = device_ms(fn, reps, ("splat_",))
+    pms = timed(plain, 3)
+    hw = h * w
+    # bytes: the points and payload read once, the z-buffer keys, the
+    # degridded buffer and the counts written and read once, the render and
+    # weights written once; operations: a projection a point, four corners'
+    # weights and (C+1) multiply-adds each
+    nbytes = n * (12 + 4 * c) + 20 + hw * 4 * 3 * 2 + hw * (c + 1) * 4
+    b_ms, b_by = bound(nbytes, n * (20 + 4 * 2 * (c + 1)) + hw * 20)
+    log(f"(v) view C splat, one item: N={n} C={c}: call ms {ms:.4f} (device "
+        f"{dev[0]:.4f}), plain ms {pms:.4f}, bound {b_ms:.4f} ({b_by})")
+    row = {"name": f"splat[c{c}]/generate_view_c", "route": "cuda",
+           "source": SPLAT_SRC, "replaces": K1,
+           "replaces_note": "kbe_tpu renders view C with the XLA scatter "
+           "spec ops/splat.py::render_pointcloud, the function K1 computes",
+           "max_abs_err": 0.0, "ms": ms, "device_ms": dev[0],
+           "device_all_ms": dev[1], "plain_ms": pms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None, "points": n,
+           "launches": counts.get(VIEW_C_KEY, 0),
+           "pass_launches": {f"{k}/c4": counts.get(f"{k}/c4", 0)
+                             for k in SPLAT_PASSES},
+           "path": f"evaluation: generate_view_c of one batch of "
+                   f"{TRAIN_BATCH} at {h}x{w} (2N points each)"}
+    rows.append(row)
+
+
 def main() -> int:
+    # cuBLAS is deterministic under torch.use_deterministic_algorithms only
+    # with a fixed workspace, which must be set before its first call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -1407,7 +1930,8 @@ def main() -> int:
     routed_vs_posed()
     autozoom_counts = autozoom_phase(more)
     cli_phase()
-    training_phase(more)
+    trained = training_phase(more)
+    evaluation_phase(more, trained, depth_phase())
     for row in more:
         if "mode" in row:
             mode = row["mode"]

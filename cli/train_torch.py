@@ -1,19 +1,29 @@
 """Training CLI of the PyTorch/CUDA port.
 
 The flags of ``cli/train.py`` (the reference ``train.py``'s, plus
---dataset/--synthetic) and ``--device`` (default ``cuda``). This slice of
-the port trains inpainting: ``--training-mode inpainting`` (supervised) and
-``inpainting_ref`` (adversarial). ``estimation`` and ``refinement``,
+--dataset/--synthetic) and ``--device`` (default ``cuda``). The four
+training modes: ``estimation`` (the disparity net, optionally with the
+instance-mask loss, ``--mask-loss same|other``), ``refinement`` (the
+refinement net behind the frozen disparity net of ``--model-path``),
+``inpainting`` (supervised) and ``inpainting_ref`` (adversarial).
 ``--mask-source maskrcnn`` and ``--data-parallel`` raise, naming the
 ``ROADMAP.md`` Queue 1 item that brings them.
 
 Usage:
-  python cli/train_torch.py --training-mode inpainting_ref --synthetic \\
-      --max-steps 3 [--device cpu]
+  python cli/train_torch.py --training-mode estimation --synthetic \\
+      --mask-loss same --max-steps 3 [--device cpu]
 
 Checkpoints are ``<checkpoint-dir>/<save-name>-<step>.tar``, written every
 500 iterations and when the run stops; ``--continue-training`` resumes the
-latest one (nets, optimizer state and step).
+latest one (nets, optimizer state and step). Refinement checkpoints hold
+the refinement net alone.
+
+On the card a run is reproducible: the trainers hold cuDNN to its
+deterministic algorithms, and ``main`` turns on
+``torch.use_deterministic_algorithms``, which gives the backward of the
+nets' bilinear upsampling (an ``index_select``, whose gradient is an
+``index_add_`` with float atomics otherwise) a deterministic path. cuBLAS
+needs a fixed workspace for that, set here before its first call.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # the synthetic generator's (height, width) per trainer mode, as
 # cli/train.py's
@@ -55,8 +66,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr-discriminator", type=float, default=5e-5)
     p.add_argument("--save-name", default="3dkbe")
     p.add_argument("--model-path", default=None,
-                   help="a reference torch .tar to warm-start the "
-                        "inpainting nets from")
+                   help="a reference torch .tar to warm-start from: the "
+                        "disparity net in estimation and refinement (there "
+                        "frozen), the inpainting nets in inpainting_ref "
+                        "and inpainting")
     p.add_argument("--continue-training", action="store_true",
                    help="resume the latest checkpoint under "
                         "--checkpoint-dir/--save-name: nets, optimizer "
@@ -81,21 +94,29 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def make_data(args, mode: str, camera):
+    """(train iterator, validation iterator factory, image size) of the
+    trainer mode ``mode``: 'disparity', 'refine' or 'inpainting'. In
+    'disparity' mode with a mask loss the batches carry instance masks
+    (the synthetic generator's own, or ``--mask-source``'s)."""
     from kbe_torch.train.data import KBEDataset, Prefetcher, \
         synthetic_batches
 
+    with_masks = args.mask_loss != "none" and mode == "disparity"
     if args.synthetic or not args.dataset:
         if not args.synthetic:
             print("No --dataset given; falling back to --synthetic data.")
         size = SYNTHETIC_SIZE[mode]
         train_iter = synthetic_batches(args.batch_size, *size, mode=mode,
-                                       camera=camera, steps=args.max_steps)
+                                       camera=camera, steps=args.max_steps,
+                                       with_instance_masks=with_masks)
         val_factory = lambda: synthetic_batches(
             args.batch_size, *size, mode=mode, camera=camera, seed=1,
             steps=4)
         return train_iter, val_factory, size
     dataset = KBEDataset([parse_dataset(d) for d in args.dataset],
-                         mode=mode)
+                         mode=mode, imagenet_path=args.mask_loss_dataset,
+                         mask_source=(args.mask_source if with_masks
+                                      else None), max_instances=8)
     train_idx, val_idx = dataset.split()
     train_iter = Prefetcher(dataset.batches(train_idx, args.batch_size,
                                             epochs=args.n_epochs))
@@ -105,9 +126,27 @@ def make_data(args, mode: str, camera):
     return train_iter, val_factory, size
 
 
+DEPTH_MODES = {"estimation": "disparity", "refinement": "refine"}
+
+
 def make_trainer(args, **kwargs):
-    """The ``TrainerInpaint`` of the parsed flags; ``kwargs`` go to it (the
-    GAN balancing, for a short run)."""
+    """The trainer of the parsed flags: ``TrainerDepth`` for estimation and
+    refinement (fresh seeded ``Semantics`` weights; no dataset or trained
+    weights are in the repo), ``TrainerInpaint`` for the inpainting modes;
+    ``kwargs`` go to it (the GAN balancing, for a short run)."""
+    if args.training_mode in DEPTH_MODES:
+        from kbe_torch.train.trainer_depth import TrainerDepth
+
+        return TrainerDepth(
+            {"model_to_train": DEPTH_MODES[args.training_mode],
+             "lr_estimation": args.lr_estimation,
+             "lr_refine": args.lr_refinement,
+             "gamma_lr": args.gamma_lr,
+             "n_epochs": args.n_epochs,
+             "mask_loss": args.mask_loss,
+             "init": args.init,
+             "save_name": args.save_name},
+            device=args.device, logs_path=args.logs_path, **kwargs)
     from kbe_torch.train.trainer_inpaint import TrainerInpaint
 
     return TrainerInpaint(
@@ -123,60 +162,96 @@ def make_trainer(args, **kwargs):
         device=args.device, logs_path=args.logs_path, **kwargs)
 
 
+def _resume(args, trainer, size, pretrained):
+    """(resume state, next iteration) of ``--continue-training``: the latest
+    checkpoint loaded into a template of the trainer's state, or None."""
+    from kbe_torch.train.checkpoint import latest_checkpoint, \
+        load_checkpoint
+
+    ck = latest_checkpoint(args.checkpoint_dir, args.save_name)
+    if ck is None:
+        print("--continue-training: no checkpoint found under "
+              f"{args.checkpoint_dir}/{args.save_name}-*", file=sys.stderr)
+        return None
+    mode = args.training_mode
+    if mode == "estimation":
+        state, step = load_checkpoint(ck, trainer.init_state(size))
+    elif mode == "refinement":
+        dstate, rstate = trainer.init_state(
+            size, "refine", disparity_params=pretrained.get("disparity"))
+        rstate, step = load_checkpoint(ck, rstate)
+        state = (dstate, rstate)
+    else:
+        state = trainer.init_state(size, pretrained)
+        if mode == "inpainting_ref":
+            state = (state, trainer.init_disc_state(size))
+        state, step = load_checkpoint(ck, state)
+    print(f"resuming from {ck} at iteration {int(step) + 1}")
+    return state, int(step) + 1
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.training_mode in ("estimation", "refinement"):
-        raise NotImplementedError(
-            f"--training-mode {args.training_mode} needs the port's "
-            "TrainerDepth, the next slice (ROADMAP.md Queue 1 item 11)")
     if args.mask_source == "maskrcnn" and args.mask_loss != "none":
         raise NotImplementedError(
             "--mask-source maskrcnn needs the port of models/maskrcnn.py "
-            "(ROADMAP.md Queue 1 item 12)")
+            "(ROADMAP.md Queue 1 item 2)")
     if args.data_parallel:
         raise NotImplementedError(
             "--data-parallel needs the port of kbe_tpu/parallel "
-            "(ROADMAP.md Queue 1 item 13)")
-    adversarial = args.training_mode == "inpainting_ref"
-    if adversarial and args.model_path is None \
+            "(ROADMAP.md Queue 1 item 3)")
+    if args.mask_loss == "other" and args.mask_loss_dataset is None \
+            and args.dataset and not args.synthetic:
+        print("--mask-loss other requires --mask-loss-dataset (the "
+              "synthetic generator supplies its own aux batch)",
+              file=sys.stderr)
+        return 1
+    mode = args.training_mode
+    if mode in ("refinement", "inpainting_ref") and args.model_path is None \
             and not args.continue_training:
-        print("NOTE: --model-path not given for inpainting_ref; starting "
-              "from random init (the reference requires a pretrained "
-              "inpainting net here).")
+        print(f"NOTE: --model-path not given for {mode}; starting from "
+              "random init (the reference requires a pretrained net "
+              "here).")
 
-    from kbe_torch.train.checkpoint import (latest_checkpoint,
-                                            load_checkpoint,
-                                            load_pretrained_params,
-                                            save_checkpoint)
+    import torch
+    from kbe_torch.train.checkpoint import load_pretrained_params, \
+        save_checkpoint
     from kbe_torch.train.trainer_inpaint import TRAIN_CAMERA
 
     trainer = make_trainer(args)
-    train_iter, val_factory, size = make_data(args, "inpainting",
-                                              TRAIN_CAMERA)
-    pretrained = None
-    if args.model_path:
-        pretrained = load_pretrained_params(args.model_path, "inpaint")
+    if trainer.device.type == "cuda":
+        torch.use_deterministic_algorithms(True)
+    if mode in DEPTH_MODES:
+        from kbe_torch.config import CameraConfig
+
+        train_iter, val_factory, size = make_data(
+            args, DEPTH_MODES[mode], CameraConfig(512.0, 74.0))
+        pretrained = {}
+        if args.model_path:
+            pretrained["disparity"] = load_pretrained_params(
+                args.model_path, "disparity")
+        run = lambda **kw: trainer.train(train_iter, val_factory, size,
+                                         pretrained=pretrained, **kw)
+    else:
+        train_iter, val_factory, size = make_data(args, "inpainting",
+                                                  TRAIN_CAMERA)
+        pretrained = None
+        if args.model_path:
+            pretrained = load_pretrained_params(args.model_path, "inpaint")
+        run = lambda **kw: trainer.train(train_iter, val_factory, size,
+                                         pretrained_params=pretrained, **kw)
     resume_state, resume_step = None, 0
     if args.continue_training:
-        ck = latest_checkpoint(args.checkpoint_dir, args.save_name)
-        if ck is None:
-            print("--continue-training: no checkpoint found under "
-                  f"{args.checkpoint_dir}/{args.save_name}-*",
-                  file=sys.stderr)
+        resumed = _resume(args, trainer, size, pretrained)
+        if resumed is None:
             return 1
-        tmpl = trainer.init_state(size, pretrained)
-        if adversarial:
-            tmpl = (tmpl, trainer.init_disc_state(size))
-        resume_state, resume_step = load_checkpoint(ck, tmpl)
-        resume_step = int(resume_step) + 1
-        print(f"resuming from {ck} at iteration {resume_step}")
+        resume_state, resume_step = resumed
     ckpt_cb = lambda state, step: save_checkpoint(
         args.checkpoint_dir, args.save_name, state, step)
-    final = trainer.train(train_iter, val_factory, size,
-                          max_steps=args.max_steps, checkpoint_cb=ckpt_cb,
-                          pretrained_params=pretrained,
-                          resume_state=resume_state,
-                          resume_step=resume_step)
+    final = run(max_steps=args.max_steps, checkpoint_cb=ckpt_cb,
+                resume_state=resume_state, resume_step=resume_step)
+    if mode == "refinement":  # only the refine state is checkpointed
+        final = final[1]
     if trainer.iter_nb > resume_step:
         # the state after the last iteration run, resumed at the next one
         path = ckpt_cb(final, trainer.iter_nb - 1)

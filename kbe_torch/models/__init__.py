@@ -1,4 +1,5 @@
-"""PyTorch counterparts of the ``kbe_tpu`` nets on the effect's path."""
+"""PyTorch counterparts of the ``kbe_tpu`` nets: the effect's nets, the
+discriminators and VGG16 of training, and Inception-v3 of the FID."""
 
 from kbe_torch.models.gridnet import ContextNet, Disparity, GridLattice, \
     Inpaint
@@ -6,7 +7,15 @@ from kbe_torch.models.layers import Basic, Downsample, PReLU, Upsample
 from kbe_torch.models.partial_conv import PartialConv, PartialInpaint
 from kbe_torch.models.refine import Refine, RefinePretrained
 from kbe_torch.models.semantics import Semantics
+from kbe_torch.models.discriminator import (
+    Discriminator, MPDDiscriminator, MultiScaleDiscriminator,
+    MultiScalePerceptualDiscriminator, PerceptualDiscriminator)
+from kbe_torch.models.inception import InceptionV3Features
+from kbe_torch.models.vgg import VGG16Features
 
-__all__ = ["Basic", "ContextNet", "Disparity", "Downsample", "GridLattice",
-           "Inpaint", "PReLU", "PartialConv", "PartialInpaint", "Refine",
-           "RefinePretrained", "Semantics", "Upsample"]
+__all__ = ["Basic", "ContextNet", "Discriminator", "Disparity",
+           "Downsample", "GridLattice", "InceptionV3Features", "Inpaint",
+           "MPDDiscriminator", "MultiScaleDiscriminator",
+           "MultiScalePerceptualDiscriminator", "PReLU", "PartialConv",
+           "PartialInpaint", "PerceptualDiscriminator", "Refine",
+           "RefinePretrained", "Semantics", "Upsample", "VGG16Features"]

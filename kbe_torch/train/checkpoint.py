@@ -94,7 +94,7 @@ def load_pretrained_params(path: str, kind: str) -> Dict:
         raise NotImplementedError(
             f"{path} is an orbax checkpoint directory: reading one needs "
             "JAX, which the port does not import (ROADMAP.md Queue 1 item "
-            "6); pass a reference .tar")
+            "1 plans torch bench weights instead); pass a reference .tar")
     from kbe_torch.utils import reference_convert as rc
 
     if kind == "disparity":

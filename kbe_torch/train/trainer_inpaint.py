@@ -14,11 +14,18 @@
     train mode, the fakes first, each pass updating its batch norms and
     spectral norms; its VGG16 is frozen (G still backpropagates through it).
 
+Every 500th iteration of ``train`` checkpoints and validates first: the
+supervised trainer reports PSNR and SSIM, the adversarial one the FID of
+its inpainted B views against the real A views (``validation_adv``).
+
 Each step takes gradients with ``torch.autograd.grad`` with respect to the
 parameters it updates, so G's loss leaves nothing in D's parameters, and D
 is trained on the fakes of the G that made the G loss (before its update).
 A D-only iteration runs the warp and the inpainting with no graph.
-Parameters are f32; on the card TF32 is turned off, as in the effect.
+Parameters are f32; on the card TF32 is turned off, as in the effect, and
+cuDNN is held to deterministic algorithms; with
+``torch.use_deterministic_algorithms`` on, as the training CLI sets it,
+two runs from one seed give equal bits.
 
 The state is held by ``InpaintState`` and ``DiscState`` (modules, optimizer
 state, step), which the steps update in place and return.
@@ -34,7 +41,8 @@ import torch
 import torch.nn as nn
 
 from kbe_torch.config import CameraConfig
-from kbe_torch.device import disable_tf32, resolve_device
+from kbe_torch.device import (deterministic_cudnn, disable_tf32,
+                              resolve_device)
 from kbe_torch.models import ContextNet, Inpaint, PartialInpaint
 from kbe_torch.models.discriminator import MPDDiscriminator, adversarial_loss
 from kbe_torch.models.init import apply_weights_init, flax_default_init
@@ -45,7 +53,8 @@ from kbe_torch.train.losses import (compute_loss_grad, compute_loss_ord,
                                     inpainting_loss, inpainting_loss_adv,
                                     weighted_total)
 from kbe_torch.train.metrics import compute_inpaint_metrics
-from kbe_torch.train.trainer_depth import Optimizer, make_optimizer
+from kbe_torch.train.trainer_depth import (Optimizer, _detached, _grads,
+                                           make_optimizer, to_device)
 from kbe_torch.train.view_synthesis import masks_a_from_b, render_view_b
 from kbe_torch.utils.convert import load_flax
 from kbe_torch.utils.logging import MetricsWriter
@@ -103,35 +112,13 @@ class DiscState:
         self.step = int(saved["step"])
 
 
-def _grads(loss: torch.Tensor, params: List[nn.Parameter]):
-    """d loss / d params; a parameter the loss does not reach gets zeros,
-    as ``jax.grad`` gives."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g
-            for p, g in zip(params, grads)]
-
-
-def _detached(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    return {k: v.detach() for k, v in metrics.items()}
-
-
-def to_device(batch, device) -> Dict:
-    """A numpy batch (``zoom`` a dict of arrays) as f32 tensors."""
-    out = {}
-    for k, v in batch.items():
-        if isinstance(v, dict):
-            out[k] = to_device(v, device)
-        else:
-            out[k] = torch.as_tensor(np.asarray(v, np.float32),
-                                     device=device)
-    return out
-
-
 @dataclasses.dataclass
 class TrainerInpaint:
     """``hparams`` keys: lr_inpaint, lr_D, gamma_lr, n_epochs, adversarial,
     model_to_train ('inpainting' | 'partial inpainting'), init, save_name,
-    and inpaint_rows (a narrower grid-net, for tests). ``vgg``: the frozen
+    inpaint_rows (a narrower grid-net, for tests) and inception_params (a
+    Flax-shaped Inception-v3 tree for the FID, else fresh weights from a
+    seed). ``vgg``: the frozen
     ``VGG16Features`` of the supervised perceptual and style losses, or
     None (those terms are left out). ``seed`` seeds the fresh nets' draws;
     ``device`` defaults to ``cuda``, which raises where there is none."""
@@ -153,10 +140,11 @@ class TrainerInpaint:
         if self.mesh is not None:
             raise NotImplementedError(
                 "data-parallel training needs the port of kbe_tpu/parallel "
-                "(ROADMAP.md Queue 1 item 13)")
+                "(ROADMAP.md Queue 1 item 3)")
         self.device = resolve_device(self.device)
         if self.device.type == "cuda":
             disable_tf32()
+            deterministic_cudnn()
         self.partial = self.hparams.get(
             "model_to_train", "inpainting") == "partial inpainting"
         rows = self.hparams.get("inpaint_rows")
@@ -173,6 +161,7 @@ class TrainerInpaint:
             self.hparams.get("gamma_lr", 0.99997))
         self.writer = MetricsWriter(self.logs_path)
         self.iter_nb = 0
+        self._fid = None
 
     # ------------------------------------------------------------ states
 
@@ -339,12 +328,29 @@ class TrainerInpaint:
         return metrics
 
     def validation_adv(self, state: InpaintState, val_iter) -> float:
-        """FID of the adversarially inpainted views against the real ones,
-        every 500 iterations in the JAX trainer."""
-        raise NotImplementedError(
-            "FID validation needs the port of kbe_tpu/train/fid.py and "
-            "models/inception.py, the evaluation slice (ROADMAP.md Queue 1 "
-            "item 11)")
+        """FID between the adversarially inpainted view-B images (clipped
+        to [0, 1]) and the real view-A images over the validation set;
+        written as ``Validation inpaint/FID``. An empty set gives nan. The
+        ``FID`` is built once, on the trainer's device."""
+        from kbe_torch.train.fid import FID
+
+        if self._fid is None:
+            self._fid = FID(params=self.hparams.get("inception_params"),
+                            device=self.device)
+        reals, fakes = [], []
+        with torch.no_grad():
+            for batch in val_iter:
+                out = self._adv_forward(state.context, state.net,
+                                        to_device(batch, self.device))
+                reals.append(out["image_a"].float().cpu().numpy())
+                fakes.append(torch.clamp(out["inpaint_img"], 0.0, 1.0)
+                             .float().cpu().numpy())
+        if not reals:
+            return float("nan")
+        score = self._fid.fid(np.concatenate(reals), np.concatenate(fakes))
+        self.writer.scalar("Validation inpaint/FID", float(score),
+                           self.iter_nb)
+        return float(score)
 
     # -------------------------------------------------------- host loop
 

@@ -9,14 +9,15 @@ arrays shaped like the Flax params:
 
   - conv weights (O, I, kh, kw) -> kernels (kh, kw, I, O)
   - PReLU weights -> per-channel ``slope``
-  - the frozen batch norm of the VGG19-bn Semantics folded into the
-    preceding conv: W' = W * g/sqrt(v+eps), b' = beta + (b - mean) *
-    g/sqrt(v+eps)
+  - the frozen batch norm of the VGG19-bn Semantics and of Inception-v3
+    folded into the preceding conv: W' = W * g/sqrt(v+eps), b' = beta +
+    (b - mean) * g/sqrt(v+eps)
+  - a spectral-norm checkpoint's ``weight_orig``/``weight_u``/``weight_v``
+    materialised to the plain weight ``weight_orig / sigma``
 
 ``kbe_torch.utils.convert.state_dict_from_flax`` then carries such a tree
 into a ``kbe_torch`` module, the one function that carries weights across.
-The discriminator, VGG16, Inception and Mask R-CNN converters belong to
-training and are not ported.
+The Mask R-CNN converter is not ported yet (``ROADMAP.md`` Queue 1).
 """
 
 from __future__ import annotations
@@ -34,8 +35,38 @@ def _load_state_dict(path: str) -> Dict[str, np.ndarray]:
     blob = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(blob, dict) and "model_state_dict" in blob:
         blob = blob["model_state_dict"]
-    return {k: v.detach().numpy() if hasattr(v, "detach") else np.asarray(v)
-            for k, v in blob.items()}
+    sd = {k: v.detach().numpy() if hasattr(v, "detach") else np.asarray(v)
+          for k, v in blob.items()}
+    return _materialize_spectral_norm(sd)
+
+
+def _materialize_spectral_norm(sd: Dict[str, np.ndarray]) -> Dict:
+    """Plain ``.weight`` entries from torch spectral-norm state.
+
+    A checkpoint saved with spectral norm on stores ``weight_orig``,
+    ``weight_u`` and ``weight_v`` instead of ``weight``; at eval torch
+    divides by sigma = u^T W v with the stored vectors. A converted
+    discriminator therefore loads into a ``spectral_norm=False`` module."""
+    out = dict(sd)
+    for k in list(sd):
+        if not k.endswith(".weight_orig"):
+            continue
+        base = k[:-len("_orig")]
+        w = sd[k]
+        wm = w.reshape(w.shape[0], -1)
+        u = sd.get(base + "_u")
+        v = sd.get(base + "_v")
+        if u is None:
+            u = np.ones(w.shape[0], w.dtype)
+            u /= np.linalg.norm(u) + 1e-12
+        if v is None:
+            v = wm.T @ u
+            v /= np.linalg.norm(v) + 1e-12
+        sigma = float(u @ (wm @ v))
+        out[base] = w / sigma
+        for suffix in ("_orig", "_u", "_v"):
+            out.pop(base + suffix, None)
+    return out
 
 
 def _conv(sd, key):
@@ -201,6 +232,172 @@ def convert_semantics(path_or_sd) -> Dict:
             for i, (conv_i, bn_i) in enumerate(block):
                 params[f"conv{b}_{i}"] = _conv_bn_folded(
                     sd, f"{prefix}{conv_i}", f"{prefix}{bn_i}")
+    return {"params": params}
+
+
+# VGG16 (the perceptual-loss extractor): torchvision ``features`` indices
+_VGG16_TV_LAYOUT = ((0, 2), (5, 7), (10, 12, 14), (17, 19, 21))
+
+
+def convert_vgg16(path_or_sd, num_slices: int = 3) -> Dict:
+    """torchvision vgg16 ``features`` -> the ``VGG16Features`` tree."""
+    sd = (path_or_sd if isinstance(path_or_sd, dict)
+          else _load_state_dict(path_or_sd))
+    prefix = "features." if any(k.startswith("features.") for k in sd) \
+        else ""
+    params = {}
+    for b in range(num_slices):
+        for i, conv_i in enumerate(_VGG16_TV_LAYOUT[b]):
+            params[f"conv{b}_{i}"] = _conv(sd, f"{prefix}{conv_i}")
+    return {"params": params}
+
+
+# The reference's discriminators: a ConvBlock's conv is ``{key}.conv.0`` and
+# its batch norm ``{key}.conv.1`` (none in a block built first=True). The
+# batch norm trains with D, so it maps to ``scale``/``bias`` and the
+# ``batch_stats`` mean and variance instead of being folded.
+
+def _disc_conv_block(sd, key, use_bn):
+    params = {"conv": _conv(sd, f"{key}.conv.0")}
+    stats = {}
+    if use_bn:
+        params["bn"] = {"scale": sd[f"{key}.conv.1.weight"],
+                        "bias": sd[f"{key}.conv.1.bias"]}
+        stats["bn"] = {"mean": sd[f"{key}.conv.1.running_mean"],
+                       "var": sd[f"{key}.conv.1.running_var"]}
+    return params, stats
+
+
+def _patch_disc(sd, prefix, n_blocks, first_has_bn):
+    """A patch discriminator's ``net.{i}`` ConvBlocks and ``outConv`` ->
+    ``block{i}`` and ``out``."""
+    params, stats = {}, {}
+    for i in range(n_blocks):
+        p, bs = _disc_conv_block(sd, f"{prefix}net.{i}",
+                                 first_has_bn or i > 0)
+        params[f"block{i}"] = p
+        if bs:
+            stats[f"block{i}"] = bs
+    params["out"] = _conv(sd, f"{prefix}outConv")
+    return params, stats
+
+
+def _vgg_block(sd, key, n_convs):
+    """A VGGBlock's convs at ``block.{0,2,4}``."""
+    return {f"conv{i}": _conv(sd, f"{key}.block.{2 * i}")
+            for i in range(n_convs)}
+
+
+# the reference's VGG16Partial: convs at slice1.{0,2}, slice2.{5,7} and
+# slice3.{10,12,14} -> ``VGG16Features`` conv{b}_{i}
+_VGG16_PARTIAL_SLICES = (
+    (("slice1", 0), ("slice1", 2)),
+    (("slice2", 5), ("slice2", 7)),
+    (("slice3", 10), ("slice3", 12), ("slice3", 14)),
+)
+
+
+def _vgg16_partial(sd, prefix):
+    params = {}
+    for b, block in enumerate(_VGG16_PARTIAL_SLICES):
+        for i, (sl, idx) in enumerate(block):
+            params[f"conv{b}_{i}"] = _conv(sd, f"{prefix}{sl}.{idx}")
+    return params
+
+
+def _multiscale_core(sd, with_vgg):
+    """The multi-scale trunk: the ConvBlock0-2 pyramid, the localD1,
+    localD2 and Dmain heads, and the frozen VGG16 where there is one."""
+    params, stats = {}, {}
+    for i, n in enumerate((2, 2, 3)):
+        params[f"pyr{i}"] = _vgg_block(sd, f"ConvBlock{i}", n)
+    for ours, theirs, n in (("local1", "localD1", 2),
+                            ("local2", "localD2", 2),
+                            ("main", "Dmain", 3)):
+        p, bs = _patch_disc(sd, f"{theirs}.", n, first_has_bn=True)
+        params[ours] = p
+        if bs:
+            stats[ours] = bs
+    if with_vgg:
+        params["vgg"] = _vgg16_partial(sd, "extractor.")
+    return params, stats
+
+
+def _has_leaves(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_has_leaves(v) for v in tree.values())
+    return True
+
+
+def convert_discriminator(path_or_sd, kind: str = "mpd") -> Dict:
+    """A reference discriminator's state dict -> its Flax-shaped variables
+    (``params``, and ``batch_stats`` where it has batch norms). ``kind``:
+    'patch' | 'perceptual' | 'multiscale' | 'multiscale_perceptual' |
+    'mpd'. Spectral-norm weights are materialised
+    (``_materialize_spectral_norm``)."""
+    sd = (_materialize_spectral_norm(path_or_sd)
+          if isinstance(path_or_sd, dict) else _load_state_dict(path_or_sd))
+    if kind == "patch":
+        params, stats = _patch_disc(sd, "", 4, first_has_bn=False)
+    elif kind == "perceptual":
+        params, stats = _patch_disc(sd, "", 3, first_has_bn=True)
+        params["vgg"] = _vgg16_partial(sd, "extractor.")
+    elif kind in ("multiscale", "multiscale_perceptual", "mpd"):
+        core_p, core_s = _multiscale_core(sd, with_vgg=kind != "multiscale")
+        params, stats = {"core": core_p}, {"core": core_s}
+    else:
+        raise ValueError(f"unknown discriminator kind: {kind}")
+    out = {"params": params}
+    if _has_leaves(stats):
+        out["batch_stats"] = stats
+    return out
+
+
+# Inception-v3 for FID: torchvision's ``inception_v3`` names, batch norm
+# folded at eps 1e-3 (Flax name, torchvision name)
+_INCEPTION_STEM = (
+    ("Conv2d_1a", "Conv2d_1a_3x3"), ("Conv2d_2a", "Conv2d_2a_3x3"),
+    ("Conv2d_2b", "Conv2d_2b_3x3"), ("Conv2d_3b", "Conv2d_3b_1x1"),
+    ("Conv2d_4a", "Conv2d_4a_3x3"),
+)
+_INCEPTION_A = ("b1x1", "b5x5_1", "b5x5_2", "b3x3dbl_1", "b3x3dbl_2",
+                "b3x3dbl_3", "bpool")
+_INCEPTION_B = ("b3x3", "b3x3dbl_1", "b3x3dbl_2", "b3x3dbl_3")
+_INCEPTION_C = ("b1x1", "b7x7_1", "b7x7_2", "b7x7_3", "b7x7dbl_1",
+                "b7x7dbl_2", "b7x7dbl_3", "b7x7dbl_4", "b7x7dbl_5", "bpool")
+_INCEPTION_D = ("b3x3_1", "b3x3_2", "b7x7x3_1", "b7x7x3_2", "b7x7x3_3",
+                "b7x7x3_4")
+_INCEPTION_E = ("b1x1", "b3x3_1", "b3x3_2a", "b3x3_2b", "b3x3dbl_1",
+                "b3x3dbl_2", "b3x3dbl_3a", "b3x3dbl_3b", "bpool")
+_INCEPTION_BLOCKS = {
+    "Mixed_5b": _INCEPTION_A, "Mixed_5c": _INCEPTION_A,
+    "Mixed_5d": _INCEPTION_A, "Mixed_6a": _INCEPTION_B,
+    "Mixed_6b": _INCEPTION_C, "Mixed_6c": _INCEPTION_C,
+    "Mixed_6d": _INCEPTION_C, "Mixed_6e": _INCEPTION_C,
+    "Mixed_7a": _INCEPTION_D, "Mixed_7b": _INCEPTION_E,
+    "Mixed_7c": _INCEPTION_E,
+}
+
+
+def _tv_branch(ours: str) -> str:
+    return "branch_pool" if ours == "bpool" else "branch" + ours[1:]
+
+
+def convert_inception(path_or_sd) -> Dict:
+    """torchvision ``inception_v3`` weights -> the BN-folded
+    ``InceptionV3Features`` tree."""
+    sd = (path_or_sd if isinstance(path_or_sd, dict)
+          else _load_state_dict(path_or_sd))
+    params = {}
+    for ours, tv in _INCEPTION_STEM:
+        params[ours] = {"conv": _conv_bn_folded(sd, f"{tv}.conv", f"{tv}.bn",
+                                                eps=1e-3)}
+    for block, branches in _INCEPTION_BLOCKS.items():
+        params[block] = {
+            b: {"conv": _conv_bn_folded(sd, f"{block}.{_tv_branch(b)}.conv",
+                                        f"{block}.{_tv_branch(b)}.bn",
+                                        eps=1e-3)}
+            for b in branches}
     return {"params": params}
 
 

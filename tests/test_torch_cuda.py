@@ -382,3 +382,84 @@ def test_render_pointcloud_trains_through_the_kernel(cuda):
         r_inf, _ = S.render_pointcloud(xyz, data.detach(), h, w, 128.0, 60.0)
     assert torch.equal(r_inf, rendered.detach())
     assert "grad/c5" not in S.LAUNCHES
+
+
+def test_generate_view_c_on_the_card_matches_the_cpu(cuda):
+    """The halfway view C (two merged clouds, C = 4) through the kernels
+    equals the same function on the CPU, bit for bit, with six launches an
+    item."""
+    from kbe_torch.config import CameraConfig
+    from kbe_torch.train.eval_inpaint import generate_view_c
+
+    b, h, w = 2, 48, 64
+    g = torch.Generator().manual_seed(60)
+    cam = CameraConfig(64.0, 30.0)
+    depth_a = 200.0 + 200.0 * torch.rand(b, h, w, 1, generator=g)
+    depth_b = 150.0 + 250.0 * torch.rand(b, h, w, 1, generator=g)
+    inputs = (depth_to_points(depth_a[..., 0], cam.focal).reshape(b, -1, 3),
+              torch.rand(b, h, w, 3, generator=g), depth_a,
+              torch.rand(b, h, w, 3, generator=g), depth_b,
+              (torch.rand(b, h, w, 1, generator=g) > 0.3).float(),
+              torch.tensor([[12.0, -4.0, 6.0], [-9.0, 3.0, -5.0]]))
+    S.LAUNCHES.clear()
+    got = generate_view_c(*(t.to(cuda) for t in inputs), cam, h, w)
+    assert S.LAUNCHES["sum/c4"] == b
+    want = generate_view_c(*inputs, cam, h, w)
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.fixture
+def deterministic(cuda, monkeypatch):
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+def test_depth_training_is_reproducible(cuda, deterministic, tmp_path):
+    """Two runs of two estimation steps (with the instance-mask loss) from
+    one seed give equal losses and parameters, bit for bit."""
+    from kbe_torch.train.data import synthetic_batches
+    from kbe_torch.train.trainer_depth import TrainerDepth
+    from kbe_torch.train.trainer_inpaint import to_device
+
+    def run(i):
+        trainer = TrainerDepth({"disparity_rows": (16, 24, 32, 64, 64, 64)},
+                               device=cuda, logs_path=str(tmp_path / f"{i}"))
+        state = trainer.init_state((128, 192))
+        losses = []
+        for batch in synthetic_batches(2, 128, 192, steps=2,
+                                       with_instance_masks=True):
+            batch.pop("imagenet")
+            state, m = trainer.disparity_train_step(
+                state, to_device(batch, cuda))
+            losses.append({k: float(v) for k, v in m.items()})
+        return losses, [p.detach().clone() for p in state.parameters()]
+
+    (la, pa), (lb, pb) = run(0), run(1)
+    assert la == lb
+    assert all(torch.equal(x, y) for x, y in zip(pa, pb))
+
+
+def test_validation_adv_gives_a_finite_fid(cuda, tmp_path):
+    """The adversarial trainer's FID validation on the card at 288^2 (the
+    discriminator's smallest size; a narrow grid-net), two batches of 2:
+    a real 2048-d Fréchet distance, and six forward splat kernels an
+    item."""
+    import math
+
+    from kbe_torch.config import CameraConfig
+    from kbe_torch.train.data import synthetic_batches
+    from kbe_torch.train.trainer_inpaint import TrainerInpaint
+
+    cam = CameraConfig(256.0, 60.0)
+    trainer = TrainerInpaint({"adversarial": True, "inpaint_rows": (8, 16)},
+                             camera=cam, device=cuda,
+                             logs_path=str(tmp_path / "runs"))
+    state = trainer.init_state((288, 288))
+    S.LAUNCHES.clear()
+    score = trainer.validation_adv(state, synthetic_batches(
+        2, 288, 288, mode="inpainting", camera=cam, seed=3, steps=2))
+    assert math.isfinite(score) and score > 0.0
+    assert S.LAUNCHES["sum/c68"] == 4 and S.LAUNCHES["zee/c68"] == 4

@@ -5,6 +5,7 @@ quietly take the plain path."""
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -27,7 +28,9 @@ def test_port_imports_no_jax_and_no_kbe_tpu():
             "kbe_torch.train.losses, kbe_torch.train.metrics, "
             "kbe_torch.train.view_synthesis, kbe_torch.train.checkpoint, "
             "kbe_torch.train.trainer_depth, "
-            "kbe_torch.train.trainer_inpaint\n"
+            "kbe_torch.train.trainer_inpaint, kbe_torch.models.inception, "
+            "kbe_torch.train.fid, kbe_torch.train.eval_inpaint, "
+            "kbe_torch.train.eval_depth\n"
             "import cli.kbe_torch, cli.train_torch\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'kbe_tpu'))\n"
@@ -48,6 +51,16 @@ def test_default_device_raises_without_a_gpu(monkeypatch, tmp_path):
         build_effect_fn(64, 64, ZoomSettings.default_3d(64, 64))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TrainerInpaint({}, logs_path=str(tmp_path / "runs"))
+    from kbe_torch.train.eval_depth import DepthEval
+    from kbe_torch.train.eval_inpaint import InpaintEval
+    from kbe_torch.train.fid import FID, preprocess_images
+    from kbe_torch.train.trainer_depth import TrainerDepth
+
+    for make in (lambda: TrainerDepth({}, logs_path=str(tmp_path / "d")),
+                 lambda: DepthEval({}), lambda: InpaintEval({}), FID,
+                 lambda: preprocess_images(np.zeros((1, 4, 4, 3)))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
 
 
 def test_unsupported_effects_raise():

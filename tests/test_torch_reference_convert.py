@@ -1,7 +1,10 @@
 """kbe_torch's converters of the reference's PyTorch checkpoints against
 kbe_tpu's, on synthetic state dicts with the reference's key names: the
 trees must be equal leaf for leaf (same arithmetic on the same numpy
-arrays, so exactly), and must load strictly into the port's nets."""
+arrays, so exactly), and must load strictly into the port's nets. The
+training converters (VGG16, the MPD discriminator with spectral-norm
+entries) are also run: the port's forward on its tree against JAX's on the
+JAX converter's, at rtol 1e-4 and atol 1e-4 of the output's scale."""
 
 import numpy as np
 import pytest
@@ -187,3 +190,91 @@ def test_load_torch_pipeline_replaces_only_what_it_is_given(tmp_path):
     assert torch.equal(models.context.conv1.weight, torch.as_tensor(w))
     for k, v in models.disparity.state_dict().items():
         assert torch.equal(v, before[k])
+
+
+def _vgg16_tv_sd(seed):
+    """torchvision ``vgg16`` ``features`` entries of the first three
+    blocks."""
+    b = _Builder(seed)
+    widths = ((3, 64), (64, 64), (64, 128), (128, 128), (128, 256),
+              (256, 256), (256, 256))
+    flat = [i for block in rc._VGG16_TV_LAYOUT[:3] for i in block]
+    for idx, (ci, co) in zip(flat, widths):
+        b.conv(f"features.{idx}", ci, co)
+        b.sd[f"features.{idx}.weight"] *= (9 * ci) ** -0.5 / 0.1
+    return b.sd
+
+
+def test_convert_vgg16_equals_jax_converter():
+    from kbe_tpu.models.vgg import VGG16Features as VGGJ
+    from kbe_torch.models.vgg import VGG16Features
+    from tests.test_torch_discriminator import _close
+
+    sd = _vgg16_tv_sd(4)
+    got, want = rc.convert_vgg16(sd), tc.convert_vgg16(sd)
+    _assert_trees_equal(got, want)
+    x = np.random.default_rng(5).uniform(0, 1, (1, 36, 44, 3)).astype(
+        np.float32)
+    with torch.no_grad():
+        out = load_flax(VGG16Features(), got)(torch.as_tensor(x))
+    for g, w in zip(out, VGGJ().apply(want, x)):
+        _close(g, w)
+
+
+def _mpd_sd(seed):
+    """The reference ``MPDDiscriminator``'s entries (as
+    ``tests/test_convert.py`` names them), fan-in scaled, with live batch
+    norm statistics; two convs saved with spectral norm on
+    (``weight_orig``, ``weight_u``, ``weight_v``)."""
+    from tests.test_convert import _reference_mpd_sd
+
+    np.random.seed(seed)
+    sd = _reference_mpd_sd()
+    rng = np.random.default_rng(seed)
+    for k in list(sd):
+        v = sd[k]
+        if k.endswith(".weight") and v.ndim == 4:
+            sd[k] = v * np.float32(np.prod(v.shape[1:]) ** -0.5)
+        elif k.endswith(".bias") and ".conv.1." not in k:
+            sd[k] = v * np.float32(0.05)
+        elif k.endswith("running_mean"):
+            sd[k] = rng.normal(0, 0.1, v.shape).astype(np.float32)
+        elif k.endswith("running_var") or k.endswith("conv.1.weight"):
+            sd[k] = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+    for key in ("Dmain.net.1.conv.0", "localD1.outConv"):
+        w = sd.pop(f"{key}.weight")
+        sd[f"{key}.weight_orig"] = w * np.float32(3.0)
+        sd[f"{key}.weight_u"] = rng.normal(0, 1, w.shape[0]).astype(
+            np.float32)
+        sd[f"{key}.weight_v"] = rng.normal(0, 1, w[0].size).astype(
+            np.float32)
+    return sd
+
+
+def test_convert_discriminator_equals_jax_converter():
+    """The MPD discriminator (with its VGG16 and the spectral-norm entries
+    materialised) at 288^2, its smallest size, in eval mode: tree equal to
+    the JAX converter's, and the port's patch maps equal JAX's on it."""
+    from kbe_tpu.models.discriminator import MPDDiscriminator as MPDJ
+    from kbe_torch.models.discriminator import MPDDiscriminator
+    from tests.test_torch_discriminator import _close
+
+    sd = _mpd_sd(6)
+    got = rc.convert_discriminator(sd, kind="mpd")
+    want = tc.convert_discriminator(sd, kind="mpd")
+    _assert_trees_equal(got, want)
+    plain = rc._materialize_spectral_norm(sd)
+    assert "Dmain.net.1.conv.0.weight" in plain
+    assert not any(k.endswith(("_orig", "_u", "_v")) for k in plain)
+    port = MPDDiscriminator(spectral_norm=False)
+    load_flax(port, got)
+    rng = np.random.default_rng(7)
+    img = rng.uniform(0, 1, (1, 288, 288, 3)).astype(np.float32)
+    disp = rng.uniform(0, 1, (1, 288, 288, 1)).astype(np.float32)
+    with torch.no_grad():
+        out = port(torch.as_tensor(img), torch.as_tensor(disp), train=False)
+    ref = MPDJ(spectral_norm=False).apply(want, img, disp, train=False)
+    for g, w in zip(out, ref):
+        _close(g, w)
+    with pytest.raises(ValueError, match="unknown discriminator"):
+        rc.convert_discriminator(sd, kind="stylegan")
