@@ -50,9 +50,11 @@ Phases, in order; any failure raises and the script exits non-zero:
          step, finite losses, moved parameters and launches checked (six
          forward splat kernels a batch item, one ``splat_grad`` a batch
          item on a G step). Three such runs: two from one seed under
-         ``torch.use_deterministic_algorithms(True)``, whose losses and
-         final states must be bit-equal, then one with cuDNN free to pick
-         its algorithms (the step times give the cost of determinism); ``splat_grad`` against ``splat_grad_plain`` and the
+         the training CLI's ``deterministic_training()``
+         (``torch.use_deterministic_algorithms(True)``), whose losses and
+         final states must be bit-equal, then one with the mode off, cuDNN
+         free to pick its algorithms (the step times give the cost of
+         determinism); ``splat_grad`` against ``splat_grad_plain`` and the
          CPU's autograd on the step's own cloud (C=68) and on a masked C=4
          cloud, and its row;
      (u) depth training at full width through the same CLI's trainer and
@@ -1177,14 +1179,13 @@ def _sync(device: str):
 
 
 def _deterministic(on: bool, device: str):
-    """Deterministic algorithms everywhere (they raise where an op has
-    none) and cuDNN's deterministic convolutions, or cuDNN free to pick its
-    fastest ones, as the trainers ran it before they fixed the choice."""
-    import torch
+    """The training CLI's deterministic mode on the card (deterministic
+    cuDNN convolutions and upsampling backward; an op with none raises), or
+    off, cuDNN free to pick its fastest convolutions."""
+    from kbe_torch.device import deterministic_training
 
     if device == "cuda":
-        torch.use_deterministic_algorithms(on)
-        torch.backends.cudnn.deterministic = on
+        deterministic_training(on)
 
 
 def _step(label, fn, before_states, device, want_counts):
@@ -1235,7 +1236,6 @@ def _train_once(size, device: str, deterministic: bool, logs: str,
     args = _train_args("inpainting", device, logs + "/sup")
     cli.SYNTHETIC_SIZE["inpainting"] = size
     trainer = cli.make_trainer(args)
-    _deterministic(deterministic, device)  # the trainer fixed cuDNN's
     data, _, _ = cli.make_data(args, "inpainting", TRAIN_CAMERA)
     state = trainer.init_state(size)
     for i in range(SUP_STEPS):
@@ -1257,7 +1257,6 @@ def _train_once(size, device: str, deterministic: bool, logs: str,
     # adversarial
     args = _train_args("inpainting_ref", device, logs + "/adv")
     trainer = cli.make_trainer(args, pretrain_steps=0, balance_steps=1)
-    _deterministic(deterministic, device)
     data, _, _ = cli.make_data(args, "inpainting", TRAIN_CAMERA)
     g_state = trainer.init_state(size)
     d_state = trainer.init_disc_state(size)
@@ -1344,9 +1343,9 @@ def training_phase(rows, size=TRAIN_SIZE, device: str = "cuda"):
     whose masks are plain PyTorch; six forward splat kernels a batch item
     in an adversarial one, and one ``grad`` a batch item in a G+D one).
     Three runs: two under ``torch.use_deterministic_algorithms(True)`` from
-    one seed, whose losses and final states must be bit-equal, then one
-    with cuDNN free to pick its algorithms, as the trainer ran before it
-    fixed them; the step times of the second and the third (both warm)
+    one seed, as the training CLI trains, whose losses and final states
+    must be bit-equal, then one with the mode off, cuDNN free to pick its
+    algorithms; the step times of the second and the third (both warm)
     give the cost of determinism. Then ``splat_grad`` on the
     last step's own cloud (C=68) and on a masked C=4 cloud, against
     ``splat_grad_plain`` and the CPU's autograd, and its row. Returns the
@@ -1533,8 +1532,8 @@ def _estimation_once(size, device: str, logs: str,
     say = (lambda *a: None) if quiet else log
     args = _train_args("estimation", device, logs, "--mask-loss", "same")
     cli.SYNTHETIC_SIZE["disparity"] = size
+    _deterministic(True, device)  # as the CLI trains
     trainer = cli.make_trainer(args)
-    _deterministic(True, device)
     data, val, _ = cli.make_data(args, "disparity",
                                  CameraConfig(512.0, 74.0))
     _reset_peak(device)
@@ -1595,8 +1594,8 @@ def _refinement(size, device: str, logs: str, batch: int):
     h, w = size
     args = _train_args("refinement", device, logs, batch=batch)
     cli.SYNTHETIC_SIZE["refine"] = size
-    trainer = cli.make_trainer(args)
     _deterministic(True, device)  # as the CLI trains
+    trainer = cli.make_trainer(args)
     data, val, _ = cli.make_data(args, "refine", CameraConfig(512.0, 74.0))
     _reset_peak(device)
     dstate, rstate = trainer.init_state(size, "refine")
@@ -1667,30 +1666,6 @@ def depth_phase(est_size=ESTIMATION_SIZE, ref_size=REFINE_SIZE,
             log(f"(u) refinement ran at batch {batch}, the largest that "
                 f"fits, not the CLI's {TRAIN_BATCH}")
     return out
-
-
-def flax_tree(module):
-    """The Flax-shaped tree of a port module of convolutions and PReLUs:
-    the inverse of ``state_dict_from_flax``, to hand trained nets to the
-    evaluation modules, which take such trees."""
-    import torch.nn as nn
-
-    tree = {}
-    for name, m in module.named_modules():
-        if isinstance(m, nn.Conv2d):
-            leaf = {"kernel": m.weight.detach().permute(2, 3, 1, 0)}
-            if m.bias is not None:
-                leaf["bias"] = m.bias.detach()
-        elif isinstance(m, nn.PReLU):
-            leaf = {"slope": m.weight.detach()}
-        else:
-            continue
-        *path, last = name.split(".")
-        node = tree
-        for part in path:
-            node = node.setdefault(part, {})
-        node[last] = {k: v.float().cpu().numpy() for k, v in leaf.items()}
-    return {"params": tree}
 
 
 VIEW_C_KEY = "sum/c4"
@@ -1768,8 +1743,8 @@ def evaluation_phase(rows, trained: TrainRun, depth, size=TRAIN_SIZE,
 
     # InpaintEval of (t)'s nets
     cam = trainer.camera
-    ev = InpaintEval({"context": flax_tree(g_state.context),
-                      "net": flax_tree(g_state.net)}, camera=cam,
+    ev = InpaintEval({"context": g_state.context.state_dict(),
+                      "net": g_state.net.state_dict()}, camera=cam,
                      device=device)
     batch = next(val())
     metrics = _check_losses("(v) InpaintEval.eval",
@@ -1809,9 +1784,9 @@ def evaluation_phase(rows, trained: TrainRun, depth, size=TRAIN_SIZE,
 
     # DepthEval of (u)'s nets
     dtrainer, dstate, rstate = depth
-    de = DepthEval({"semantics": flax_tree(dtrainer.semantics),
-                    "disparity": flax_tree(dstate.net),
-                    "refine": flax_tree(rstate.net)}, device=device)
+    de = DepthEval({"semantics": dtrainer.semantics.state_dict(),
+                    "disparity": dstate.net.state_dict(),
+                    "refine": rstate.net.state_dict()}, device=device)
     dargs = _train_args("refinement", device, os.devnull)
     _, dval, dsize = cli.make_data(dargs, "refine",
                                    CameraConfig(512.0, 74.0))
@@ -1858,11 +1833,12 @@ def view_c_row(rows, inputs, cam, h: int, w: int, counts):
     dev = device_ms(fn, reps, ("splat_",))
     pms = timed(plain, 3)
     hw = h * w
-    # bytes: the points and payload read once, the z-buffer keys, the
-    # degridded buffer and the counts written and read once, the render and
-    # weights written once; operations: a projection a point, four corners'
-    # weights and (C+1) multiply-adds each
-    nbytes = n * (12 + 4 * c) + 20 + hw * 4 * 3 * 2 + hw * (c + 1) * 4
+    # bytes: the function's own inputs read once (the points, the payload,
+    # the pose) and its outputs written once (the render and the weights);
+    # the kernels' z-buffer, degridded buffer and counts are neither, and
+    # at this size they stay in L2; operations: a projection a point, four
+    # corners' weights and (C+1) multiply-adds each
+    nbytes = n * (12 + 4 * c) + 20 + hw * (c + 1) * 4
     b_ms, b_by = bound(nbytes, n * (20 + 4 * 2 * (c + 1)) + hw * 20)
     log(f"(v) view C splat, one item: N={n} C={c}: call ms {ms:.4f} (device "
         f"{dev[0]:.4f}), plain ms {pms:.4f}, bound {b_ms:.4f} ({b_by})")

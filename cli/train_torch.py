@@ -18,12 +18,10 @@ Checkpoints are ``<checkpoint-dir>/<save-name>-<step>.tar``, written every
 latest one (nets, optimizer state and step). Refinement checkpoints hold
 the refinement net alone.
 
-On the card a run is reproducible: the trainers hold cuDNN to its
-deterministic algorithms, and ``main`` turns on
-``torch.use_deterministic_algorithms``, which gives the backward of the
-nets' bilinear upsampling (an ``index_select``, whose gradient is an
-``index_add_`` with float atomics otherwise) a deterministic path. cuBLAS
-needs a fixed workspace for that, set here before its first call.
+On the card a run is reproducible: ``main`` turns on
+``kbe_torch.device.deterministic_training`` (deterministic cuDNN
+convolutions and upsampling backward, a fixed cuBLAS workspace) before the
+trainer's first CUDA call.
 """
 
 from __future__ import annotations
@@ -34,7 +32,6 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # the synthetic generator's (height, width) per trainer mode, as
 # cli/train.py's
@@ -213,14 +210,14 @@ def main(argv=None) -> int:
               "random init (the reference requires a pretrained net "
               "here).")
 
-    import torch
+    from kbe_torch.device import deterministic_training, resolve_device
     from kbe_torch.train.checkpoint import load_pretrained_params, \
         save_checkpoint
     from kbe_torch.train.trainer_inpaint import TRAIN_CAMERA
 
+    if resolve_device(args.device).type == "cuda":
+        deterministic_training()
     trainer = make_trainer(args)
-    if trainer.device.type == "cuda":
-        torch.use_deterministic_algorithms(True)
     if mode in DEPTH_MODES:
         from kbe_torch.config import CameraConfig
 

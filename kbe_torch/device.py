@@ -2,7 +2,12 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+# the workspace sizes with which cuBLAS is deterministic
+CUBLAS_DETERMINISTIC = (":4096:8", ":16:8")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -27,12 +32,27 @@ def disable_tf32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def deterministic_cudnn() -> None:
-    """Have cuDNN pick deterministic algorithms and skip its autotuner.
+def deterministic_training(on: bool = True) -> None:
+    """Make training on the card reproducible (``on``), or free it again.
 
-    cuDNN's fastest f32 backward convolutions add in an order that varies
-    run to run, so two training runs from one seed part in the 7th digit
-    after a step. With this set they give equal bits, as the splat's
-    kernels do."""
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    ``torch.use_deterministic_algorithms`` holds cuDNN to its deterministic
+    convolutions (its fastest f32 backward ones add in an order that varies
+    run to run) and gives the nets' bilinear upsampling a deterministic
+    backward (an ``index_select``, whose gradient is an ``index_add_`` with
+    float atomics otherwise); an op with no deterministic path raises. cuBLAS
+    then needs a fixed workspace, ``CUBLAS_WORKSPACE_CONFIG``, before its
+    first call: this sets it where CUDA has not started yet and raises where
+    it started without it. With this on, two training runs from one seed
+    give equal bits, as the splat's kernels do. The mode is global to the
+    process, so it is set where training starts (the training CLI), not by
+    the trainers."""
+    if on:
+        conf = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        if conf is None and not torch.cuda.is_initialized():
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = conf = ":4096:8"
+        if conf not in CUBLAS_DETERMINISTIC:
+            raise RuntimeError(
+                "deterministic cuBLAS needs CUBLAS_WORKSPACE_CONFIG set to "
+                f"one of {CUBLAS_DETERMINISTIC} before CUDA starts "
+                f"(it is {conf!r})")
+    torch.use_deterministic_algorithms(on)

@@ -14,12 +14,11 @@ from typing import Any, Dict, Iterable
 
 import torch
 
-from kbe_torch.device import (deterministic_cudnn, disable_tf32,
-                              resolve_device)
+from kbe_torch.device import disable_tf32, resolve_device
 from kbe_torch.models import Disparity, Refine, RefinePretrained, Semantics
 from kbe_torch.ops.resize import resize_to_max
 from kbe_torch.train.metrics import compute_depth_metrics
-from kbe_torch.utils.convert import load_flax
+from kbe_torch.utils.convert import load_params
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -28,7 +27,8 @@ def _tensor(x, device) -> torch.Tensor:
 
 @dataclasses.dataclass
 class DepthEval:
-    """``params``: {'semantics', 'disparity', 'refine'}, Flax-shaped trees.
+    """``params``: {'semantics', 'disparity', 'refine'}, Flax-shaped trees
+    or the port's state dicts (a trainer's nets).
     ``eval_pretrained`` shifts inputs from [-1, 1] to [0, 1], the range the
     released nets were trained on; ``pretrained_refine`` picks
     ``RefinePretrained``. ``device`` defaults to ``cuda``, which raises
@@ -44,10 +44,9 @@ class DepthEval:
         self.device = resolve_device(self.device)
         if self.device.type == "cuda":
             disable_tf32()
-            deterministic_cudnn()
-        self.semantics = load_flax(Semantics(), self.params["semantics"])
-        self.disparity = load_flax(Disparity(), self.params["disparity"])
-        self.refine = load_flax(
+        self.semantics = load_params(Semantics(), self.params["semantics"])
+        self.disparity = load_params(Disparity(), self.params["disparity"])
+        self.refine = load_params(
             (RefinePretrained if self.pretrained_refine else Refine)(),
             self.params["refine"])
         for m in (self.semantics, self.disparity, self.refine):

@@ -19,8 +19,7 @@ import numpy as np
 import torch
 
 from kbe_torch.config import CameraConfig
-from kbe_torch.device import (deterministic_cudnn, disable_tf32,
-                              resolve_device)
+from kbe_torch.device import disable_tf32, resolve_device
 from kbe_torch.models import ContextNet, Inpaint, PartialInpaint
 from kbe_torch.models.layers import denormalize_sample, normalize_sample
 from kbe_torch.ops.geometry import depth_to_points, disparity_to_depth
@@ -29,7 +28,7 @@ from kbe_torch.train.fid import FID
 from kbe_torch.train.metrics import compute_inpaint_metrics
 from kbe_torch.train.trainer_inpaint import TRAIN_CAMERA, to_device
 from kbe_torch.train.view_synthesis import masks_a_from_b, render_view_b
-from kbe_torch.utils.convert import load_flax
+from kbe_torch.utils.convert import load_params
 
 
 def generate_view_c(points_a, image_a, depth_a, image_b, depth_b, mask_b,
@@ -56,8 +55,9 @@ def generate_view_c(points_a, image_a, depth_a, image_b, depth_b, mask_b,
 
 @dataclasses.dataclass
 class InpaintEval:
-    """``params``: {'context': ..., 'net': ...}, Flax-shaped trees of the
-    nets (a converted reference checkpoint, or a JAX checkpoint's arrays).
+    """``params``: {'context': ..., 'net': ...}, the nets' Flax-shaped trees
+    (a converted reference checkpoint, or a JAX checkpoint's arrays) or
+    the port's state dicts (a trainer's nets).
     ``partial_conv`` picks ``PartialInpaint``; ``fid_params`` is the
     Inception tree of the FID (None: fresh weights). ``device`` defaults to
     ``cuda``, which raises where there is none."""
@@ -73,9 +73,8 @@ class InpaintEval:
         self.device = resolve_device(self.device)
         if self.device.type == "cuda":
             disable_tf32()
-            deterministic_cudnn()
-        self.context = load_flax(ContextNet(), self.params["context"])
-        self.net = load_flax(
+        self.context = load_params(ContextNet(), self.params["context"])
+        self.net = load_params(
             (PartialInpaint if self.partial_conv else Inpaint)(),
             self.params["net"])
         for m in (self.context, self.net):

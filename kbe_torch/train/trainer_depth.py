@@ -17,9 +17,10 @@
 
 Validation every 500 iterations and once after the loop: the 7 depth
 metrics, at 256 pixels in disparity mode, at full resolution after the
-refinement. On the card TF32 is off and cuDNN deterministic, as in the
-inpainting trainer (reproducible under
-``torch.use_deterministic_algorithms``).
+refinement. On the card TF32 is off, as in the inpainting trainer; two
+runs from one seed give equal bits under
+``kbe_torch.device.deterministic_training``, which the training CLI turns
+on.
 
 A ``TrainState`` holds one net, its optimizer state and step count; the
 steps update it in place and return it.
@@ -51,8 +52,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from kbe_torch.device import (deterministic_cudnn, disable_tf32,
-                              resolve_device)
+from kbe_torch.device import disable_tf32, resolve_device
 from kbe_torch.models import Disparity, Refine, Semantics
 from kbe_torch.models.init import apply_weights_init, flax_default_init
 from kbe_torch.ops.resize import resize_to_max
@@ -198,7 +198,6 @@ class TrainerDepth:
         self.device = resolve_device(self.device)
         if self.device.type == "cuda":
             disable_tf32()
-            deterministic_cudnn()
         sem = Semantics()
         if self.semantics_params is None:
             flax_default_init(sem, torch.Generator().manual_seed(

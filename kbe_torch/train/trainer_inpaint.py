@@ -22,10 +22,9 @@ Each step takes gradients with ``torch.autograd.grad`` with respect to the
 parameters it updates, so G's loss leaves nothing in D's parameters, and D
 is trained on the fakes of the G that made the G loss (before its update).
 A D-only iteration runs the warp and the inpainting with no graph.
-Parameters are f32; on the card TF32 is turned off, as in the effect, and
-cuDNN is held to deterministic algorithms; with
-``torch.use_deterministic_algorithms`` on, as the training CLI sets it,
-two runs from one seed give equal bits.
+Parameters are f32; on the card TF32 is turned off, as in the effect;
+under ``kbe_torch.device.deterministic_training``, which the training CLI
+turns on, two runs from one seed give equal bits.
 
 The state is held by ``InpaintState`` and ``DiscState`` (modules, optimizer
 state, step), which the steps update in place and return.
@@ -41,8 +40,7 @@ import torch
 import torch.nn as nn
 
 from kbe_torch.config import CameraConfig
-from kbe_torch.device import (deterministic_cudnn, disable_tf32,
-                              resolve_device)
+from kbe_torch.device import disable_tf32, resolve_device
 from kbe_torch.models import ContextNet, Inpaint, PartialInpaint
 from kbe_torch.models.discriminator import MPDDiscriminator, adversarial_loss
 from kbe_torch.models.init import apply_weights_init, flax_default_init
@@ -144,7 +142,6 @@ class TrainerInpaint:
         self.device = resolve_device(self.device)
         if self.device.type == "cuda":
             disable_tf32()
-            deterministic_cudnn()
         self.partial = self.hparams.get(
             "model_to_train", "inpainting") == "partial inpainting"
         rows = self.hparams.get("inpaint_rows")

@@ -104,3 +104,13 @@ def load_flax(module: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
     a missing or unexpected entry raises."""
     module.load_state_dict(state_dict_from_flax(tree))
     return module
+
+
+def load_params(module: torch.nn.Module, params: Mapping) -> torch.nn.Module:
+    """Load ``params`` into ``module`` strictly: the port's own state dict (a
+    flat mapping of tensors, as ``state_dict()`` gives it) as it is, or else
+    a Flax param tree through ``load_flax``."""
+    if params and all(isinstance(v, torch.Tensor) for v in params.values()):
+        module.load_state_dict(params)
+        return module
+    return load_flax(module, params)

@@ -411,10 +411,12 @@ def test_generate_view_c_on_the_card_matches_the_cpu(cuda):
 
 @pytest.fixture
 def deterministic(cuda, monkeypatch):
+    from kbe_torch.device import deterministic_training
+
     monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.use_deterministic_algorithms(True)
+    deterministic_training(True)
     yield
-    torch.use_deterministic_algorithms(False)
+    deterministic_training(False)
 
 
 def test_depth_training_is_reproducible(cuda, deterministic, tmp_path):

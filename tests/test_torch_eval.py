@@ -22,6 +22,8 @@ Flax trees and batches; JAX runs its XLA spec paths.
   refinement takes the estimation at a quarter of the image, which the
   resize to 512 gives at a 1024-pixel long side, the size of the
   reference's eval crops.
+- Both evaluators built from the port's state dicts give the bits of the
+  same nets built from the Flax trees.
 """
 
 import functools
@@ -253,3 +255,31 @@ def test_depth_eval_matches_jax(depth_trees, pretrained, monkeypatch):
                                    atol=1e-4 * scale, err_msg=k)
     assert got["estimation"].shape == (1, 8, 256, 1)
     assert got["refined"].shape == (1, 32, 1024, 1)
+
+
+@pytest.mark.parametrize("which", ["inpaint", "depth"])
+def test_evals_take_the_ports_state_dicts(depth_trees, which, monkeypatch):
+    """An evaluator built from its nets' state dicts (a trainer hands over
+    its modules so) gives the same bits as one built from the Flax trees."""
+    if which == "inpaint":
+        make = lambda p: EIT.InpaintEval(p, camera=CameraConfig(*CAM),
+                                         device="cpu")
+        trees = _inpaint_params(False, 30)
+        nets = ("context", "net")
+        batch = _inpaint_batches(31)[0]
+        run = lambda e: e.get_inpaint(batch, output_render_c=True)
+    else:
+        monkeypatch.setattr(EDT, "Disparity",
+                            functools.partial(Disparity, rows=ROWS))
+        make = lambda p: EDT.DepthEval(p, device="cpu")
+        trees = depth_trees
+        nets = ("semantics", "disparity", "refine")
+        batch = _depth_batch(32)
+        run = lambda e: e.get_depths(batch)
+    from_trees = make(trees)
+    from_dicts = make({k: getattr(from_trees, k).state_dict()
+                       for k in nets})
+    want, got = run(from_trees), run(from_dicts)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

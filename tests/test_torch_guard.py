@@ -2,6 +2,7 @@
 points run on CUDA unless asked for the CPU, and its kernel wrappers never
 quietly take the plain path."""
 
+import os
 import subprocess
 import sys
 
@@ -61,6 +62,27 @@ def test_default_device_raises_without_a_gpu(monkeypatch, tmp_path):
                  lambda: preprocess_images(np.zeros((1, 4, 4, 3)))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
+
+
+def test_deterministic_training_fixes_the_cublas_workspace(monkeypatch):
+    """The training CLI's deterministic mode sets cuBLAS's fixed workspace
+    where CUDA has not started, refuses a workspace that is not one, and
+    turns ``torch.use_deterministic_algorithms`` on and off."""
+    from kbe_torch.device import deterministic_training
+
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    try:
+        deterministic_training()
+        assert torch.are_deterministic_algorithms_enabled()
+        assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
+    finally:
+        deterministic_training(False)
+    assert not torch.are_deterministic_algorithms_enabled()
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":0:0")
+    with pytest.raises(RuntimeError, match="CUBLAS_WORKSPACE_CONFIG"):
+        deterministic_training()
+    assert not torch.are_deterministic_algorithms_enabled()
 
 
 def test_unsupported_effects_raise():
