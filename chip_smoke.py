@@ -72,6 +72,19 @@ Phases, in order; any failure raises and the script exits non-zero:
          view C (``generate_view_c``, C=4 over two merged clouds) is
          bit-equal to the same function on the CPU, then timed as its
          row; ``DepthEval.eval`` of (u)'s nets on two batches at 768x1024;
+     (w) Mask R-CNN instance masks: a synthetic torchvision-layout
+         ``.pth`` (seeded, full width) loaded through
+         ``cli/train_torch.py``'s ``resolve_mask_source`` (512^2 canvas);
+         kernel ``nms`` bit-equal to its plain loop on the card, on a real
+         forward's five RPN sets and its box set and on tie, zero-slot and
+         full-overlap sets, and its two rows; the forward on the card
+         against the CPU on a 512^2 noise image (FPN features 1e-4
+         relative, equal labels, boxes within 1e-2 px, masks equal on
+         99.9 %; a synthetic item's canvas reported beside it); a forward
+         and the source per item timed; 3 'same' estimation steps and one
+         with 'other' at 384x512, batch 8, on the source's masks computed
+         in ``Prefetcher``'s thread, twice from one seed, bit-equal, with
+         masks and mask losses not zero and two NMS launches an image;
   7. the ``{"kernels": [...]}`` line, then the device line last. A row's
      ``launches`` are those of the run named in its ``path``, counted from
      zero just before that run. ``ms`` is the call's time (CUDA events
@@ -83,9 +96,11 @@ The later phases take ``size`` and ``device`` arguments, so each runs
 alone on the card, or at a small size on the CPU, from Python (the kernels
 build at first use): ``CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 -c "import
 chip_smoke as cs; t = cs.training_phase([]); cs.evaluation_phase([], t,
-cs.depth_phase())"`` runs (t), (u) and (v) alone.
+cs.depth_phase())"`` runs (t), (u) and (v) alone, and ``... -c "import
+chip_smoke as cs; cs.maskrcnn_phase([])"`` runs (w) alone.
 
-Tolerances: none. Every kernel is exact (``splat_grad`` too, against the
+Tolerances: none for the kernels. Every kernel is exact (``nms`` against
+its plain loop on the card; ``splat_grad`` too, against the
 plain gather on the card and the CPU's autograd of the plain render): the
 front half's z-buffer keys and its degridded buffer, and the fill, are bit-equal to their plain versions
 on the card (the keys and the degrid compared apart), and the accumulation (the
@@ -707,18 +722,20 @@ def card_vs_cpu():
 
 
 def launch_counts():
-    from kbe_torch.ops import discfill, splat
+    from kbe_torch.ops import discfill, nms, splat
 
     counts = dict(splat.LAUNCHES)
     counts.update(discfill.LAUNCHES)
+    counts.update(nms.LAUNCHES)
     return counts
 
 
 def clear_launches():
-    from kbe_torch.ops import discfill, splat
+    from kbe_torch.ops import discfill, nms, splat
 
     splat.LAUNCHES.clear()
     discfill.LAUNCHES.clear()
+    nms.LAUNCHES.clear()
 
 
 def expect_counts(label, want):
@@ -1856,11 +1873,367 @@ def view_c_row(rows, inputs, cam, h: int, w: int, counts):
                    f"{TRAIN_BATCH} at {h}x{w} (2N points each)"}
     rows.append(row)
 
+NMS_SRC = "kbe_torch/ops/csrc/nms.cu"
+NMS_SPEC = "kbe_tpu/models/maskrcnn.py:222"   # _nms_keep's lax.fori_loop
+MASK_CANVAS = 512           # resolve_mask_source's inference canvas
+
+
+def nms_work(boxes, scores, thresh: float):
+    """(rounds, IoUs): the rounds of the greedy loop whose slot is alive
+    (each ends in a barrier in the kernel) and the IoUs they compute (one a
+    later slot still alive), over sorted sets on the CPU: the work this
+    data needs."""
+    import numpy as np
+    from kbe_torch.ops import nms as N
+
+    rounds = ious = 0
+    for b, s in zip(boxes.cpu(), scores.cpu()):
+        over = (N.iou_matrix(b) > float(np.float32(thresh))).numpy()
+        alive = (s > 0).numpy().copy()
+        for i in np.flatnonzero(alive):
+            if not alive[i]:
+                continue
+            rounds += 1
+            later = alive[i + 1:]
+            ious += int(later.sum())
+            later &= ~over[i, i + 1:]
+    return rounds, ious
+
+
+def nms_sets_of_forward(model, canvas):
+    """The sets that ``canvas``'s forward hands to ``nms_keep_sets``:
+    [(sets, thresh, tag)], the RPN's five levels and the box set."""
+    import torch
+    from kbe_torch.models import maskrcnn as MR
+
+    calls, keep = [], MR.nms_keep_sets
+
+    def record(sets, thresh, tag):
+        calls.append(([(b.clone(), s.clone()) for b, s in sets], thresh,
+                      tag))
+        return keep(sets, thresh, tag)
+
+    MR.nms_keep_sets = record
+    try:
+        with torch.no_grad():
+            model(canvas[None])
+    finally:
+        MR.nms_keep_sets = keep
+    return calls
+
+
+def nms_rows(rows, model, canvas):
+    """Kernel ``nms`` against its plain loop on the card, bit-equal: on the
+    RPN's five sets and the box set of a real forward, and on tie,
+    zero-slot and full-overlap sets; then the two real launches timed as
+    rows (launches filled in by the caller)."""
+    import torch
+    from kbe_torch.ops import nms as N
+
+    g = torch.Generator().manual_seed(5)
+    extra = []
+    for case in ("ties", "zero_slots", "full_overlap"):
+        xy = torch.rand(512, 2, generator=g) * 480.0
+        boxes = torch.cat([xy, xy + 4.0 + torch.rand(512, 2, generator=g)
+                           * 120.0], 1)
+        scores = torch.rand(512, generator=g)
+        if case == "ties":
+            scores = torch.round(scores * 4) / 4
+        elif case == "zero_slots":
+            scores[torch.rand(512, generator=g) < 0.3] = 0.0
+        else:
+            boxes[1::2] = boxes[0::2]
+            scores[1::2] = scores[0::2]
+        extra.append(([(boxes.cuda(), scores.cuda())], 0.5, case))
+    out = {}
+    for sets, thresh, tag in nms_sets_of_forward(model, canvas) + extra:
+        boxes, scores, _ = N.sort_sets(sets)
+        got = N.keep_cuda(boxes, scores, thresh, "compare")
+        want = torch.stack([N.keep_plain(b, s, thresh)
+                            for b, s in zip(boxes, scores)])
+        assert_equal(f"(w) nms {tag}", got, want)
+        kept = int((want > 0).sum())
+        log(f"(w) nms {tag}: {boxes.shape[0]} set(s) of up to "
+            f"{boxes.shape[1]}, {int((scores > 0).sum())} alive, {kept} "
+            "kept: bit-equal to the plain loop on the card")
+        if tag in ("rpn", "box"):
+            out[tag] = (boxes, scores, thresh)
+    for tag, (boxes, scores, thresh) in out.items():
+        fn = lambda: N.keep_cuda(boxes, scores, thresh, "compare")
+        ms = timed(fn, 20)
+        dev = device_ms(fn, 20, ("nms_kernel",))
+        pms = timed(lambda: [N.keep_plain(b, s, thresh)
+                             for b, s in zip(boxes, scores)], 2)
+        rounds, ious = nms_work(boxes, scores, thresh)
+        sets, cap = scores.shape
+        # bytes: boxes and scores read once, the kept scores written once;
+        # operations: 15 f32 operations an IoU and its compare
+        b_ms, b_by = bound(sets * cap * (16 + 4 + 4), ious * 15)
+        log(f"(w) nms[{tag}]: {sets} set(s) x {cap}, {rounds} killing "
+            f"rounds, {ious} IoUs; call ms {ms:.4f} (device {dev[0]:.4f}),"
+            f" plain ms {pms:.4f}, bound {b_ms:.6f} ({b_by})")
+        rows.append({
+            "name": f"nms[{tag}]", "route": "cuda", "source": NMS_SRC,
+            "replaces": NMS_SPEC,
+            "replaces_note": "none: lax.fori_loop in XLA",
+            "max_abs_err": 0.0, "ms": ms, "device_ms": dev[0],
+            "device_all_ms": dev[1], "plain_ms": pms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "sets": sets, "cap": cap,
+            "rounds": rounds, "ious": ious, "count_key": f"nms/{tag}",
+            "bound_note": "bytes and IoUs of this data; the time goes to "
+                          "the serial rounds, each a barrier"})
+
+
+# kernel kinds of a forward's profile, by name
+FORWARD_KINDS = (("nms", ("nms_kernel",)),
+                 ("conv/gemm", ("conv", "gemm", "xmma", "cudnn", "cutlass",
+                                "winograd", "fft", "sm90", "implicit")),
+                 ("sort", ("sort", "radix")),
+                 ("gather/index", ("index", "gather", "scatter")))
+
+
+def forward_profile(fwd, fwd_ms: float):
+    """The device time of one forward by kernel kind, its busy share of the
+    forward's time, its launches, and its five longest kernels."""
+    events = device_events(fwd, 3)
+    times, counts = {}, {}
+    for name, start, end in events:
+        kind = next((k for k, keys in FORWARD_KINDS
+                     if any(x in name.lower() for x in keys)), "other")
+        times[kind] = times.get(kind, 0.0) + (end - start) / 3 / 1e3
+        counts[name] = counts.get(name, 0.0) + (end - start) / 3 / 1e3
+    busy = sum(times.values())
+    kinds = {k: round(v, 3) for k, v in times.items()}
+    top = [(n[:60], round(t, 3))
+           for n, t in sorted(counts.items(), key=lambda kv: -kv[1])[:5]]
+    log(f"(w) a forward's device time {busy:.3f} ms of {fwd_ms:.3f} ms "
+        f"(idle share {1.0 - busy / fwd_ms:.3f}), {len(events) // 3} "
+        f"kernels; by kind {json.dumps(kinds)}; longest {top}")
+
+
+def _half_01(image):
+    """A [-1, 1] image (H, W, 3) at half size in [0, 1], as KBEDataset
+    hands the mask source its items (cv2's INTER_AREA at 2x is the 2x2
+    mean)."""
+    h, w = image.shape[0] // 2, image.shape[1] // 2
+    x = (image[:2 * h, :2 * w] + 1.0) / 2.0
+    return x.reshape(h, 2, w, 2, 3).mean(axis=(1, 3)).astype("float32")
+
+
+def _source_batches(data, source, steps: int, record):
+    """``steps`` batches of ``data`` whose items' instance masks, and the
+    last batch's auxiliary ones, come from ``source`` (at the items' half
+    size, as KBEDataset computes them); ``record`` gains each mask stack."""
+    import numpy as np
+
+    for i in range(steps):
+        batch = next(data)
+        parts = [batch] + ([batch["imagenet"]] if i == steps - 1 else [])
+        for part in parts:
+            part["instance_masks"] = np.stack(
+                [source(_half_01(im), None) for im in part["image"]])
+            record.append(part["instance_masks"])
+        yield batch
+
+
+def _estimation_with_source(size, device: str, logs: str, source,
+                            quiet: bool = False):
+    """(w) estimation through the CLI's trainer and synthetic data whose
+    masks come from the Mask R-CNN source, computed in ``Prefetcher``'s
+    thread as the CLI's dataset does: three 'same' steps, then one that
+    adds the 'other' step on the auxiliary batch. Returns (TrainRun, the
+    NMS launches of the run, the masks)."""
+    from cli import train_torch as cli
+    from kbe_torch.config import CameraConfig
+    from kbe_torch.train.data import Prefetcher
+    from kbe_torch.train.trainer_inpaint import to_device
+
+    h, w = size
+    run, masks = TrainRun(), []
+    say = (lambda *a: None) if quiet else log
+    args = _train_args("estimation", device, logs, "--mask-loss", "same")
+    cli.SYNTHETIC_SIZE["disparity"] = size
+    _deterministic(True, device)
+    trainer = cli.make_trainer(args)
+    data, _, _ = cli.make_data(args, "disparity", CameraConfig(512.0, 74.0))
+    state = trainer.init_state(size)
+    clear_launches()
+    prefetch = Prefetcher(_source_batches(data, source, DEPTH_STEPS + 1,
+                                          masks))
+    for i, batch in enumerate(prefetch):
+        aux = to_device(batch.pop("imagenet"), trainer.device)
+        batch = to_device(batch, trainer.device)
+        other = i == DEPTH_STEPS
+        before = _params_of(state)
+        _sync(device)
+        t0 = time.perf_counter()
+        state, m = trainer.disparity_train_step(state, batch)
+        if other:
+            state, m2 = trainer.imagenet_mask_step(state, aux)
+            m = dict(m, mask_other=m2["mask"])
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        label = (f"(w) estimation step {i} "
+                 f"({'same + other' if other else 'same'})")
+        losses = _check_losses(label, m)
+        if not _moved(before, state) > 0.0:
+            raise AssertionError(f"{label}: parameters did not move")
+        for k in ("mask",) + (("mask_other",) if other else ()):
+            if not losses[k] > 0.0:
+                raise AssertionError(f"{label}: {k} loss {losses[k]}")
+        run.record("estimation", ms, losses)
+        say(f"{label} at {h}x{w}, batch {TRAIN_BATCH}, Mask R-CNN masks: "
+            f"{ms:.1f} ms; losses {json.dumps(losses)}")
+    prefetch.thread.join(timeout=60)
+    if prefetch.thread.is_alive() or len(run.times) != DEPTH_STEPS + 1:
+        raise AssertionError(f"(w) {len(run.times)} steps; the prefetch "
+                             "thread did not end or its source failed")
+    counts = launch_counts()
+    run.states.append(state)
+    _deterministic(False, device)
+    return run, counts, masks
+
+
+def maskrcnn_phase(rows, size=ESTIMATION_SIZE, device: str = "cuda",
+                   canvas_size: int = MASK_CANVAS):
+    """(w) Mask R-CNN instance masks for depth training:
+    - a synthetic torchvision-layout ``.pth`` (seeded, full width) written
+      to a temporary directory, loaded through ``cli/train_torch.py``'s
+      ``resolve_mask_source`` on ``device`` (canvas ``canvas_size``^2);
+    - kernel ``nms`` bit-equal to its plain loop on the card on a real
+      forward's RPN and box sets and on tie, zero-slot and full-overlap
+      sets, and its rows timed (on the card);
+    - the forward on the card against the CPU on one noise image, and on a
+      synthetic item's canvas (reported);
+    - a forward and the source per item timed;
+    - estimation at ``size``, batch 8, with the source's masks, twice from
+      one seed: losses and states bit-equal, masks and mask losses not
+      zero, two NMS launches an image."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from cli import train_torch as cli
+    from kbe_torch.models.maskrcnn import load_maskrcnn
+    from kbe_torch.train.data import synthetic_batches
+    from kbe_torch.utils.reference_convert import convert_maskrcnn, \
+        synthetic_maskrcnn_state_dict
+
+    h, w = size
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "maskrcnn.pth")
+        torch.save({k: torch.from_numpy(v) for k, v in
+                    synthetic_maskrcnn_state_dict(0).items()}, path)
+        args = _train_args("estimation", device, tmp, "--mask-loss", "same",
+                           "--mask-source", "maskrcnn",
+                           "--maskrcnn-weights", path)
+        t0 = time.perf_counter()
+        source = cli.resolve_mask_source(args, max_instances=8,
+                                         infer_size=canvas_size)
+        load_s = time.perf_counter() - t0
+        tree = convert_maskrcnn(path)
+    model = load_maskrcnn(tree, device=device)
+    cpu_model = load_maskrcnn(tree, device="cpu")
+    log(f"(w) Mask R-CNN: synthetic torchvision weights "
+        f"({sum(p.numel() for p in model.parameters())} parameters) "
+        f"through resolve_mask_source in {load_s:.2f} s")
+
+    # a synthetic item's canvas, as the source builds it
+    item = next(synthetic_batches(1, h, w))["image"][0]
+    from kbe_torch.ops.resize import resize_bilinear_antialias
+
+    small = _half_01(item)
+    s = canvas_size / max(small.shape[:2])
+    rh, rw = round(small.shape[0] * s), round(small.shape[1] * s)
+    canvas = torch.zeros((canvas_size, canvas_size, 3), device=device)
+    canvas[:rh, :rw] = resize_bilinear_antialias(
+        torch.from_numpy(small).to(device), rh, rw)
+    if device == "cuda":
+        nms_rows(rows, model, canvas)
+
+    # card against CPU: one noise image (asserted), the item's canvas
+    noise = torch.from_numpy(np.random.default_rng(9).uniform(
+        size=(1, canvas_size, canvas_size, 3)).astype(np.float32))
+    for name, image in (("noise image", noise), ("item canvas",
+                                                 canvas[None].cpu())):
+        with torch.no_grad():
+            got = {k: v.cpu() for k, v in model(image.to(device)).items()}
+            want = cpu_model(image)
+            ferr = float("nan")
+            if name == "noise image":
+                feats = [f.cpu() for f in model.features(image.to(device))]
+                ferr = max(float((a - b).abs().max() / b.abs().max())
+                           for a, b in zip(feats, cpu_model.features(image)))
+        same_labels = bool(torch.equal(got["labels"], want["labels"]))
+        berr = float((got["boxes"] - want["boxes"]).abs().max())
+        agree = float(((got["masks"] > 0.5) == (want["masks"] > 0.5))
+                      .float().mean())
+        passing = int((want["scores"] > 0.5).sum())
+        log(f"(w) forward at {canvas_size}^2, card vs CPU, {name}: FPN "
+            f"features max rel err {ferr:.3g}, labels equal {same_labels}, "
+            f"boxes max err {berr:.4g} px, masks agree on {agree:.6f}, "
+            f"{passing} of {want['scores'].shape[1]} detections above 0.5")
+        if name == "noise image" and not (
+                ferr <= 1e-4 and same_labels and berr <= 1e-2
+                and agree >= 0.999 and passing >= 1):
+            raise AssertionError("(w) Mask R-CNN on the card does not "
+                                 "match the CPU")
+
+    # timings: a forward (and where its device time goes), the source per
+    # item
+    fwd_ms = float("nan")
+    if device == "cuda":
+        fwd = lambda: model(canvas[None])
+        with torch.no_grad():
+            fwd_ms = timed(fwd, 5)
+            forward_profile(fwd, fwd_ms)
+    batch = next(synthetic_batches(TRAIN_BATCH, h, w))
+    per_item = []
+    for im in batch["image"]:
+        _sync(device)
+        t0 = time.perf_counter()
+        source(_half_01(im), None)
+        _sync(device)
+        per_item.append((time.perf_counter() - t0) * 1e3)
+    log(f"(w) a {canvas_size}^2 forward {fwd_ms:.2f} ms (CUDA events, "
+        f"mean of 5); the source per {h // 2}x{w // 2} item "
+        f"{[round(t, 2) for t in per_item]} ms (host clock)")
+
+    # estimation with the source's masks, twice from one seed
+    with tempfile.TemporaryDirectory() as logs:
+        first, counts, masks = _estimation_with_source(size, device,
+                                                       logs + "/1", source)
+        second, _, _ = _estimation_with_source(size, device, logs + "/2",
+                                               source, quiet=True)
+    assert_runs_equal("(w) estimation with Mask R-CNN masks", first, second)
+    images = TRAIN_BATCH * (DEPTH_STEPS + 2)
+    want = ({"nms/rpn": images, "nms/box": images} if device == "cuda"
+            else {})
+    if counts != want:
+        raise AssertionError(f"(w) estimation: launches {counts}, want "
+                             f"{want}")
+    filled = [float(m.mean()) for m in masks]
+    if not all(f > 0 for f in filled):
+        raise AssertionError(f"(w) a batch's masks are empty: {filled}")
+    log(f"(w) estimation with Mask R-CNN masks: ms a step "
+        f"{json.dumps(_step_ms(first))}, second run "
+        f"{json.dumps(_step_ms(second))}; mask share of each batch "
+        f"{[round(f, 5) for f in filled]}; launches {json.dumps(counts)}")
+    for row in rows:
+        if row["name"].startswith("nms["):
+            settle(row, counts)
+            row["path"] = (f"(w) estimation at {h}x{w}, batch {TRAIN_BATCH}:"
+                           f" {DEPTH_STEPS + 1} batches and one auxiliary "
+                           f"batch, {images} images, one launch an image")
+    return {"forward_ms": fwd_ms, "source_ms": per_item,
+            "step_ms": _step_ms(first)}
+
 
 def main() -> int:
     # cuBLAS is deterministic under torch.use_deterministic_algorithms only
     # with a fixed workspace, which must be set before its first call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1908,6 +2281,7 @@ def main() -> int:
     cli_phase()
     trained = training_phase(more)
     evaluation_phase(more, trained, depth_phase())
+    maskrcnn_phase(more)
     for row in more:
         if "mode" in row:
             mode = row["mode"]
@@ -1918,9 +2292,11 @@ def main() -> int:
             settle(row, autozoom_counts)
             row["path"] = (f"autozoom: {SIZE}^2 points, "
                            f"{row['launches']} candidates")
-        else:  # (e), (p) and (t) counted their own runs
+        else:  # (e), (p), (t) and (w) counted their own runs
             assert "launches" in row, row["name"]
     rows += more
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
+        "included")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

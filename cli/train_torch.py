@@ -6,8 +6,11 @@ training modes: ``estimation`` (the disparity net, optionally with the
 instance-mask loss, ``--mask-loss same|other``), ``refinement`` (the
 refinement net behind the frozen disparity net of ``--model-path``),
 ``inpainting`` (supervised) and ``inpainting_ref`` (adversarial).
-``--mask-source maskrcnn`` and ``--data-parallel`` raise, naming the
-``ROADMAP.md`` Queue 1 item that brings them.
+``--mask-source maskrcnn --maskrcnn-weights <torchvision .pth>`` takes a
+``--dataset``'s instance masks from the port's Mask R-CNN on the card, as
+the reference does; ``--synthetic`` keeps the generator's own masks.
+``--data-parallel`` raises, naming the ``ROADMAP.md`` Queue 1 item that
+brings it.
 
 Usage:
   python cli/train_torch.py --training-mode estimation --synthetic \\
@@ -90,11 +93,58 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def resolve_mask_source(args, max_instances: int = 8,
+                        infer_size: int = 512):
+    """'depth' and 'image' pass through to KBEDataset's own segmenters;
+    'maskrcnn' loads the converted torchvision weights of
+    ``--maskrcnn-weights`` on ``--device`` and returns the instance-mask
+    callable of ``cli/train.py::resolve_mask_source``: numpy (h, w, 3) in
+    [0, 1] (or (1, h, w, 3)) -> (max_instances, h, w, 1) masks. The image
+    is resized, aspect kept (JAX's antialiased bilinear), onto a zero-padded
+    ``infer_size`` square canvas, the net's first ``max_instances`` masks
+    are cropped to it and resized back (nearest)."""
+    if args.mask_source != "maskrcnn":
+        return args.mask_source
+    if not args.maskrcnn_weights:
+        raise SystemExit("--mask-source maskrcnn requires "
+                         "--maskrcnn-weights <torchvision .pth>")
+    import numpy as np
+    import torch
+
+    from kbe_torch.models.maskrcnn import load_maskrcnn, \
+        maskrcnn_instance_masks
+    from kbe_torch.ops.resize import resize_bilinear_antialias, \
+        resize_nearest
+    from kbe_torch.utils.reference_convert import convert_maskrcnn
+
+    model = load_maskrcnn(convert_maskrcnn(args.maskrcnn_weights),
+                          device=args.device)
+    dev = model.rpn.conv.weight.device
+
+    def source(image01, disparity=None):
+        img = np.asarray(image01[0] if image01.ndim == 4 else image01,
+                         np.float32)
+        h, w = img.shape[0], img.shape[1]
+        s = infer_size / max(h, w)
+        rh, rw = max(1, round(h * s)), max(1, round(w * s))
+        small = resize_bilinear_antialias(torch.from_numpy(img).to(dev),
+                                          rh, rw)
+        canvas = torch.zeros((infer_size, infer_size, 3), device=dev)
+        canvas[:rh, :rw] = small
+        masks = maskrcnn_instance_masks(model, canvas[None])[0]
+        masks = masks[:max_instances, :rh, :rw]
+        out = resize_nearest(masks, (masks.shape[0], h, w, 1)).cpu().numpy()
+        return out[None] if image01.ndim == 4 else out
+
+    return source
+
+
 def make_data(args, mode: str, camera):
     """(train iterator, validation iterator factory, image size) of the
     trainer mode ``mode``: 'disparity', 'refine' or 'inpainting'. In
     'disparity' mode with a mask loss the batches carry instance masks
-    (the synthetic generator's own, or ``--mask-source``'s)."""
+    (the synthetic generator's own, or ``--mask-source``'s through
+    ``resolve_mask_source``)."""
     from kbe_torch.train.data import KBEDataset, Prefetcher, \
         synthetic_batches
 
@@ -110,10 +160,13 @@ def make_data(args, mode: str, camera):
             args.batch_size, *size, mode=mode, camera=camera, seed=1,
             steps=4)
         return train_iter, val_factory, size
+    max_instances = 8  # KBEDataset's capacity, the mask source's too
     dataset = KBEDataset([parse_dataset(d) for d in args.dataset],
                          mode=mode, imagenet_path=args.mask_loss_dataset,
-                         mask_source=(args.mask_source if with_masks
-                                      else None), max_instances=8)
+                         mask_source=(resolve_mask_source(
+                             args, max_instances=max_instances)
+                             if with_masks else None),
+                         max_instances=max_instances)
     train_idx, val_idx = dataset.split()
     train_iter = Prefetcher(dataset.batches(train_idx, args.batch_size,
                                             epochs=args.n_epochs))
@@ -189,14 +242,10 @@ def _resume(args, trainer, size, pretrained):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mask_source == "maskrcnn" and args.mask_loss != "none":
-        raise NotImplementedError(
-            "--mask-source maskrcnn needs the port of models/maskrcnn.py "
-            "(ROADMAP.md Queue 1 item 2)")
     if args.data_parallel:
         raise NotImplementedError(
             "--data-parallel needs the port of kbe_tpu/parallel "
-            "(ROADMAP.md Queue 1 item 3)")
+            "(ROADMAP.md Queue 1 item 2)")
     if args.mask_loss == "other" and args.mask_loss_dataset is None \
             and args.dataset and not args.synthetic:
         print("--mask-loss other requires --mask-loss-dataset (the "

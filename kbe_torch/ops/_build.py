@@ -26,7 +26,7 @@ _BUILD = Path(__file__).resolve().parent / "_build"
 _COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # source -> (extra nvcc flags, {C entry: (argtypes, restype)})
 SOURCES = {
@@ -40,6 +40,10 @@ SOURCES = {
         "kbe_discfill_set_tables": ([_P], _I),
         "kbe_discfill_max_steps": ([], _I),
         "kbe_discfill": ([_P, _P] + [_I] * 8 + [_P, _P, _P], _I),
+    }),
+    "nms": (["-fmad=false"], {
+        "kbe_nms_max_cap": ([], _I),
+        "kbe_nms": ([_P, _P, _I, _I, _F, _P, _P], _I),
     }),
 }
 

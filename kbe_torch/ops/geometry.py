@@ -25,12 +25,13 @@ def true_div(a, b):
     PyTorch divides ``scalar / tensor`` as ``scalar * reciprocal(tensor)``,
     and on CUDA ``tensor / python_scalar`` as a multiply by the scalar's
     reciprocal: both round twice and miss JAX's quotient by an ulp, which
-    moves splat corners. A Python number here becomes a tensor on the other
-    operand's device first."""
+    moves splat corners. A Python number here becomes a 0-d tensor filled on
+    the other operand's device first (not copied from the host: on the card
+    such a copy waits for the stream)."""
     if not isinstance(a, torch.Tensor):
-        a = torch.tensor(a, dtype=torch.float32, device=b.device)
+        a = torch.full((), a, dtype=torch.float32, device=b.device)
     elif not isinstance(b, torch.Tensor):
-        b = torch.tensor(b, dtype=torch.float32, device=a.device)
+        b = torch.full((), b, dtype=torch.float32, device=a.device)
     return torch.div(a, b)
 
 

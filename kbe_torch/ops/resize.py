@@ -10,6 +10,15 @@ here are computed with JAX's f32 arithmetic: sample position
 divided by their in-image sum, zero where ``s`` lies outside
 ``[-0.5, n - 0.5]``. Each output takes two taps, so a gather of two rows
 replaces JAX's dense weight-matrix product.
+
+``resize_bilinear_antialias`` is ``jax.image.resize(method='bilinear')``
+with its default antialias: on a downsampled axis the triangle is widened
+by the downscale, so an output takes many taps, and it applies JAX's dense
+weight matrix; an upsampled axis takes the two taps above (there antialias
+changes nothing). ``resize_nearest`` is ``jax.image.resize(method=
+'nearest')`` as XLA computes it: XLA folds the scale into ``s = f32(m *
+f32(1 / n))`` and takes ``floor((i + 0.5) * s)``, which at 378 -> 189
+picks rows 0, 2, 4, ... where ``floor((i + 0.5) * m / n)`` picks 1, 3, 5.
 """
 
 from __future__ import annotations
@@ -20,8 +29,8 @@ import torch
 
 def _axis_taps(n_in: int, n_out: int, device):
     """(lo, hi, w_lo, w_hi) for one resized axis, JAX's f32 arithmetic."""
-    inv_scale = torch.tensor(np.float32(1.0 / (n_out / n_in)),
-                             device=device)
+    inv_scale = torch.full((), np.float32(1.0 / (n_out / n_in)),
+                           device=device)
     s = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) \
         * inv_scale - 0.5
     lo = torch.floor(s)
@@ -68,6 +77,60 @@ def resize_bilinear(image: torch.Tensor, height: int,
     x = _resize_axis(x, height, x.ndim - 3)
     x = _resize_axis(x, width, x.ndim - 2)
     return x.to(image.dtype)
+
+
+def _antialias_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """(n_in, n_out) weights of a downsampled axis, as JAX's
+    ``compute_weight_mat`` computes them in f32."""
+    inv_scale = torch.full((), np.float32(1.0 / (n_out / n_in)),
+                           device=device)
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device)
+              + 0.5) * inv_scale - 0.5
+    src = torch.arange(n_in, dtype=torch.float32, device=device)
+    x = torch.div(torch.abs(sample[None, :] - src[:, None]), kernel_scale)
+    weights = torch.clamp(1.0 - x, min=0.0)
+    total = weights.sum(dim=0, keepdim=True)
+    keep = torch.abs(total) > 1000.0 * float(np.finfo(np.float32).eps)
+    weights = torch.where(keep, torch.div(weights, torch.where(
+        total != 0, total, torch.ones_like(total))), torch.zeros_like(weights))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], weights, torch.zeros_like(weights))
+
+
+def resize_bilinear_antialias(image: torch.Tensor, height: int,
+                              width: int) -> torch.Tensor:
+    """``jax.image.resize(image, ..., 'bilinear')`` (antialias on).
+    ``image``: (..., H, W, C); computes in f32, returns ``image.dtype``."""
+    x = image.to(torch.float32)
+    for axis, n_out in ((x.ndim - 3, height), (x.ndim - 2, width)):
+        n_in = x.shape[axis]
+        if n_out < n_in:
+            wmat = _antialias_weights(n_in, n_out, x.device)
+            x = torch.movedim(torch.tensordot(
+                torch.movedim(x, axis, -1), wmat, dims=1), -1, axis)
+        else:
+            x = _resize_axis(x, n_out, axis)
+    return x.to(image.dtype)
+
+
+def _nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
+    scale = np.float32(n_in) * np.float32(np.float32(1.0) / np.float32(n_out))
+    pos = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) \
+        * torch.full((), scale, device=device)
+    return torch.floor(pos).to(torch.long).clamp(0, n_in - 1)
+
+
+def resize_nearest(x: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.image.resize(x, shape, 'nearest')``: every axis whose size
+    differs from ``shape``'s takes the nearest source index."""
+    if len(shape) != x.ndim:
+        raise ValueError(f"shape {tuple(shape)} for a {x.ndim}-d input")
+    for axis, n_out in enumerate(shape):
+        if x.shape[axis] != n_out:
+            x = torch.index_select(x, axis, _nearest_index(
+                x.shape[axis], n_out, x.device))
+    return x
 
 
 def resize_to_max(image: torch.Tensor, max_size: int) -> torch.Tensor:

@@ -138,7 +138,7 @@ class TrainerInpaint:
         if self.mesh is not None:
             raise NotImplementedError(
                 "data-parallel training needs the port of kbe_tpu/parallel "
-                "(ROADMAP.md Queue 1 item 3)")
+                "(ROADMAP.md Queue 1 item 2)")
         self.device = resolve_device(self.device)
         if self.device.type == "cuda":
             disable_tf32()

@@ -5,7 +5,12 @@ own module names, which mirror the Flax tree: a module path
 ``lattice/blk0x1/conv1`` becomes ``lattice.blk0x1.conv1``. Leaves:
 
   ``kernel`` (kh, kw, in, out)  -> ``weight`` (out, in, kh, kw)
+  ``kernel`` (in, out) (Dense)  -> ``weight`` (out, in), a ``Linear``'s
   ``bias``                      -> ``bias``
+
+A Flax ``ConvTranspose`` kernel takes the 4-D rule like a conv's; the
+port's transposed conv (``models/maskrcnn.py::ConvTranspose``) keeps it in
+that layout and flips it in its forward.
   ``slope`` (PReLU)             -> ``weight``
 
 A leaf may sit beside submodules: ``PartialConv`` keeps its ``bias`` next to
@@ -51,10 +56,11 @@ def _params(tree: Mapping, out: Dict[str, torch.Tensor]) -> None:
                 continue
             arr = np.asarray(val, dtype=np.float32)
             if key == "kernel":
-                if arr.ndim != 4:
-                    raise ValueError(f"{prefix}kernel: expected HWIO, got "
-                                     f"shape {arr.shape}")
-                name, arr = "weight", arr.transpose(3, 2, 0, 1)
+                if arr.ndim not in (2, 4):
+                    raise ValueError(f"{prefix}kernel: expected HWIO or "
+                                     f"(in, out), got shape {arr.shape}")
+                name = "weight"
+                arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
             elif key == "slope":
                 name = "weight"
             elif key in ("bias", "scale"):

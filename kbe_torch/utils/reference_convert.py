@@ -17,11 +17,14 @@ arrays shaped like the Flax params:
 
 ``kbe_torch.utils.convert.state_dict_from_flax`` then carries such a tree
 into a ``kbe_torch`` module, the one function that carries weights across.
-The Mask R-CNN converter is not ported yet (``ROADMAP.md`` Queue 1).
+``convert_maskrcnn`` maps torchvision's ``maskrcnn_resnet50_fpn`` weights
+(frozen batch norm folded at eps 0), and ``synthetic_maskrcnn_state_dict``
+draws such weights from a seed: no trained ones are in the repository.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -399,6 +402,143 @@ def convert_inception(path_or_sd) -> Dict:
                                         eps=1e-3)}
             for b in branches}
     return {"params": params}
+
+
+# Mask R-CNN: torchvision ``maskrcnn_resnet50_fpn`` (frozen batch norm),
+# the reference's instance-mask source (training/train_depth.py:55,151-163)
+_RESNET50_BLOCKS = (3, 4, 6, 3)
+_RESNET50_WIDTHS = (64, 128, 256, 512)
+
+
+def convert_maskrcnn(path_or_sd, eps: float = 0.0) -> Dict:
+    """torchvision ``maskrcnn_resnet50_fpn`` weights -> the BN-folded
+    ``MaskRCNN`` tree, as ``kbe_tpu``'s converter maps them. A Dense kernel
+    is (in, out). ``conv5_mask``'s (in, out, kh, kw) weight becomes the
+    Flax ``ConvTranspose`` kernel (kh, kw, in, out) with no spatial flip,
+    as ``kbe_tpu`` maps it; the port's ``ConvTranspose`` applies that kernel
+    as Flax does, so both packages deconvolve with torchvision's kernel
+    flipped in both axes."""
+    sd = (path_or_sd if isinstance(path_or_sd, dict)
+          else _load_state_dict(path_or_sd))
+
+    def fold(conv_key, bn_key):
+        return _conv_bn_folded(sd, conv_key, bn_key, eps=eps)
+
+    def dense(key):
+        return {"kernel": np.transpose(sd[f"{key}.weight"], (1, 0)),
+                "bias": sd[f"{key}.bias"]}
+
+    backbone: Dict = {"stem": fold("backbone.body.conv1",
+                                   "backbone.body.bn1")}
+    for s, blocks in enumerate(_RESNET50_BLOCKS):
+        for b in range(blocks):
+            key = f"backbone.body.layer{s + 1}.{b}"
+            blk = {f"conv{i}": fold(f"{key}.conv{i}", f"{key}.bn{i}")
+                   for i in (1, 2, 3)}
+            if f"{key}.downsample.0.weight" in sd:
+                blk["downsample"] = fold(f"{key}.downsample.0",
+                                         f"{key}.downsample.1")
+            backbone[f"layer{s + 1}_{b}"] = blk
+    for i in range(4):
+        backbone[f"fpn_inner{i}"] = _conv(sd,
+                                          f"backbone.fpn.inner_blocks.{i}")
+        backbone[f"fpn_layer{i}"] = _conv(sd,
+                                          f"backbone.fpn.layer_blocks.{i}")
+    rpn = {name: _conv(sd, f"rpn.head.{name}")
+           for name in ("conv", "cls_logits", "bbox_pred")}
+    box_head = {"fc6": dense("roi_heads.box_head.fc6"),
+                "fc7": dense("roi_heads.box_head.fc7"),
+                "cls_score": dense("roi_heads.box_predictor.cls_score"),
+                "bbox_pred": dense("roi_heads.box_predictor.bbox_pred")}
+    mask_head = {f"mask_fcn{i}": _conv(sd, f"roi_heads.mask_head.mask_fcn{i}")
+                 for i in (1, 2, 3, 4)}
+    w = sd["roi_heads.mask_predictor.conv5_mask.weight"]
+    mask_head["conv5_mask"] = {
+        "kernel": np.transpose(w, (2, 3, 0, 1)),
+        "bias": sd["roi_heads.mask_predictor.conv5_mask.bias"]}
+    mask_head["mask_fcn_logits"] = _conv(
+        sd, "roi_heads.mask_predictor.mask_fcn_logits")
+    return {"params": {"backbone": backbone, "rpn": rpn,
+                       "box_head": box_head, "mask_head": mask_head}}
+
+
+# the classes whose classifier bias lifts them above the mask source's 0.5
+_SYNTHETIC_CLASSES = (1, 3)
+
+
+def synthetic_maskrcnn_state_dict(seed: int = 0) -> Dict:
+    """A torchvision-layout ``maskrcnn_resnet50_fpn`` state dict of numpy
+    f32 arrays drawn from ``seed``, for runs without trained weights.
+
+    Convs are He-scaled; the frozen batch norms are near identity, with a
+    small scale on each bottleneck's last one, so activations stay O(1)
+    through the 53 folded convs (draws of std 1 saturate every sigmoid,
+    and ties then decide the detections). The classifier's bias lifts
+    two classes so that detections pass the mask source's 0.5 (at
+    random weights each of the 91 classes gets about 0.011, under the box
+    head's 0.05) and differ in class (``_SYNTHETIC_CLASSES``)."""
+    rng = np.random.default_rng(seed)
+    sd: Dict[str, np.ndarray] = {}
+
+    def normal(shape, std):
+        return (rng.standard_normal(shape, dtype=np.float32)
+                * np.float32(std))
+
+    def conv(key, cout, cin, k, bias=True, gain=2.0):
+        sd[f"{key}.weight"] = normal((cout, cin, k, k),
+                                     math.sqrt(gain / (cin * k * k)))
+        if bias:
+            sd[f"{key}.bias"] = normal((cout,), 0.05)
+
+    def bn(key, c, scale=(0.8, 1.2)):
+        sd[f"{key}.weight"] = rng.uniform(*scale, c).astype(np.float32)
+        sd[f"{key}.bias"] = normal((c,), 0.1)
+        sd[f"{key}.running_mean"] = normal((c,), 0.1)
+        sd[f"{key}.running_var"] = rng.uniform(0.8, 1.2, c).astype(
+            np.float32)
+
+    def linear(key, cout, cin, gain=2.0):
+        sd[f"{key}.weight"] = normal((cout, cin), math.sqrt(gain / cin))
+        sd[f"{key}.bias"] = normal((cout,), 0.05)
+
+    conv("backbone.body.conv1", 64, 3, 7, bias=False)
+    bn("backbone.body.bn1", 64)
+    cin = 64
+    for s, (blocks, width) in enumerate(zip(_RESNET50_BLOCKS,
+                                            _RESNET50_WIDTHS)):
+        for b in range(blocks):
+            key = f"backbone.body.layer{s + 1}.{b}"
+            conv(f"{key}.conv1", width, cin, 1, bias=False)
+            bn(f"{key}.bn1", width)
+            conv(f"{key}.conv2", width, width, 3, bias=False)
+            bn(f"{key}.bn2", width)
+            conv(f"{key}.conv3", width * 4, width, 1, bias=False)
+            bn(f"{key}.bn3", width * 4, scale=(0.2, 0.4))
+            if b == 0:
+                conv(f"{key}.downsample.0", width * 4, cin, 1, bias=False)
+                bn(f"{key}.downsample.1", width * 4)
+            cin = width * 4
+    for i, c in enumerate((256, 512, 1024, 2048)):
+        conv(f"backbone.fpn.inner_blocks.{i}", 256, c, 1, gain=0.02)
+        conv(f"backbone.fpn.layer_blocks.{i}", 256, 256, 3, gain=1.0)
+    conv("rpn.head.conv", 256, 256, 3)
+    conv("rpn.head.cls_logits", 3, 256, 1, gain=1.0)
+    conv("rpn.head.bbox_pred", 12, 256, 1, gain=0.01)
+    linear("roi_heads.box_head.fc6", 1024, 256 * 7 * 7)
+    linear("roi_heads.box_head.fc7", 1024, 1024)
+    linear("roi_heads.box_predictor.cls_score", 91, 1024, gain=0.5)
+    sd["roi_heads.box_predictor.cls_score.bias"][
+        list(_SYNTHETIC_CLASSES)] = 8.0
+    linear("roi_heads.box_predictor.bbox_pred", 91 * 4, 1024, gain=0.01)
+    for i in (1, 2, 3, 4):
+        conv(f"roi_heads.mask_head.mask_fcn{i}", 256, 256, 3)
+    # ConvTranspose2d: (in, out, kh, kw); each output takes one tap a
+    # channel, so its fan-in is the input's channels
+    sd["roi_heads.mask_predictor.conv5_mask.weight"] = normal(
+        (256, 256, 2, 2), math.sqrt(2.0 / 256))
+    sd["roi_heads.mask_predictor.conv5_mask.bias"] = normal((256,), 0.05)
+    conv("roi_heads.mask_predictor.mask_fcn_logits", 91, 256, 1, gain=1.0)
+    return sd
 
 
 def load_torch_pipeline(models, estim: Optional[str] = None,

@@ -31,7 +31,8 @@ def test_port_imports_no_jax_and_no_kbe_tpu():
             "kbe_torch.train.trainer_depth, "
             "kbe_torch.train.trainer_inpaint, kbe_torch.models.inception, "
             "kbe_torch.train.fid, kbe_torch.train.eval_inpaint, "
-            "kbe_torch.train.eval_depth\n"
+            "kbe_torch.train.eval_depth, kbe_torch.models.maskrcnn, "
+            "kbe_torch.ops.nms\n"
             "import cli.kbe_torch, cli.train_torch\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'kbe_tpu'))\n"
@@ -55,9 +56,11 @@ def test_default_device_raises_without_a_gpu(monkeypatch, tmp_path):
     from kbe_torch.train.eval_depth import DepthEval
     from kbe_torch.train.eval_inpaint import InpaintEval
     from kbe_torch.train.fid import FID, preprocess_images
+    from kbe_torch.models.maskrcnn import load_maskrcnn
     from kbe_torch.train.trainer_depth import TrainerDepth
 
     for make in (lambda: TrainerDepth({}, logs_path=str(tmp_path / "d")),
+                 lambda: load_maskrcnn({}),
                  lambda: DepthEval({}), lambda: InpaintEval({}), FID,
                  lambda: preprocess_images(np.zeros((1, 4, 4, 3)))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -132,3 +135,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                     torch.zeros(16), torch.zeros(16, 4), 4, 4)
     with pytest.raises(ValueError):
         D.fill_cuda(torch.zeros(4, 4, 4), torch.zeros(4, 4, 1), 16)
+    from kbe_torch.ops import nms as N
+
+    with pytest.raises(ValueError):
+        N.keep_cuda(torch.zeros(2, 8, 4), torch.zeros(2, 8), 0.5, "rpn")

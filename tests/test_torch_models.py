@@ -206,3 +206,35 @@ def test_layers_pool_and_norm_stats():
                     stats_j(jnp.asarray(x, jnp.bfloat16))):
         assert a.dtype == torch.float32
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["dense", "conv_transpose"])
+def test_dense_and_conv_transpose_load_from_flax(kind):
+    """The converter's 2-D rule (a Dense kernel (in, out) becomes a
+    ``Linear.weight`` (out, in)) and a Flax ``ConvTranspose`` (2x2, stride
+    2) loaded into the port's ``ConvTranspose``: the same forward. A leaf
+    the converter does not know still raises."""
+    import flax.linen as fnn
+    from kbe_torch.models.maskrcnn import ConvTranspose
+
+    if kind == "dense":
+        flax_mod, port = fnn.Dense(24), torch.nn.Linear(40, 24)
+        x = _u(3, 40, seed=2, lo=-1.0)
+    else:
+        flax_mod, port = (fnn.ConvTranspose(6, (2, 2), strides=(2, 2)),
+                          ConvTranspose(5, 6))
+        x = _u(2, 7, 9, 5, seed=2, lo=-1.0)
+    params = random_params(flax_mod, jnp.asarray(x), seed=3)
+    want = flax_mod.apply(params, jnp.asarray(x))
+    port = _port(port, params)
+    with torch.no_grad():
+        if kind == "dense":
+            got = port(torch.from_numpy(x))
+        else:
+            got = port(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(
+                0, 2, 3, 1)
+    _close(got.numpy(), want)
+    with pytest.raises(ValueError, match="unknown Flax leaf"):
+        state_dict_from_flax({"params": {"fc": {"embedding": np.zeros(3)}}})
+    with pytest.raises(ValueError, match="expected HWIO"):
+        state_dict_from_flax({"params": {"fc": {"kernel": np.zeros(3)}}})

@@ -1,9 +1,12 @@
 """``cli/train_torch.py`` on the CPU: each training mode runs a step at a
 patched small data size (and a narrow grid-net or disparity lattice),
 writes its checkpoint, and resumes from it with ``--continue-training``
-(nets, optimizer state and step). The flags of later slices
-(``--mask-source maskrcnn``, ``--data-parallel``) raise in every mode, and
-the default device raises where there is no GPU.
+(nets, optimizer state and step). ``--mask-source maskrcnn`` trains on a
+``--dataset`` with the Mask R-CNN's masks (a synthetic torchvision-layout
+``.pth``; a 64^2 canvas), exits without ``--maskrcnn-weights`` as
+``cli/train.py`` does, and leaves ``--synthetic`` the generator's masks.
+``--data-parallel`` raises in every mode, and the default device raises
+where there is no GPU.
 
 The depth modes' sizes follow their resizes: estimation validates at 256
 pixels from an estimation at ``estimation_size`` 512, half of it, so the
@@ -135,13 +138,9 @@ def test_cli_refinement_checkpoints_and_resumes(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--training-mode", "estimation", "--mask-loss", "same",
-     "--mask-source", "maskrcnn"],
     ["--training-mode", "refinement", "--data-parallel"],
     ["--training-mode", "inpainting", "--data-parallel"],
-    ["--training-mode", "inpainting", "--mask-loss", "same",
-     "--mask-source", "maskrcnn"],
-], ids=["estimation", "refinement", "data_parallel", "maskrcnn"])
+], ids=["refinement", "data_parallel"])
 def test_later_slices_raise(argv, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.main(argv + ["--device", "cpu", "--logs-path",
@@ -153,3 +152,87 @@ def test_default_device_raises_without_a_gpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         T.main(["--training-mode", "inpainting", "--synthetic",
                 "--max-steps", "1", "--logs-path", str(tmp_path / "runs")])
+
+
+def _tiny_dataset(root, n=2):
+    """``n`` 16x128 PNG images with 16-bit depth maps, in the reference's
+    layout (``images/``, ``depth/``)."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    for d in ("images", "depth"):
+        os.makedirs(root / d)
+    for i in range(n):
+        cv2.imwrite(str(root / "images" / f"{i}.png"),
+                    rng.integers(0, 256, (16, 128, 3), dtype=np.uint8))
+        cv2.imwrite(str(root / "depth" / f"{i}.png"),
+                    rng.integers(1000, 3000, (16, 128), dtype=np.uint16))
+    return f"tiny:{root}:512:74"
+
+
+@pytest.mark.parametrize("case", ["no_weights", "synthetic"])
+def test_mask_source_maskrcnn(case, tmp_path, monkeypatch):
+    """Without ``--maskrcnn-weights`` a ``--dataset`` run exits, as
+    ``cli/train.py`` does; with ``--synthetic`` the generator's own masks
+    feed the mask loss and no Mask R-CNN is built."""
+    _narrow_depth(monkeypatch)
+    more = ["--mask-loss", "same", "--mask-source", "maskrcnn"]
+    if case == "no_weights":
+        argv = _argv("estimation", tmp_path, 1, *more)
+        argv[argv.index("--synthetic")] = "--dataset"
+        argv.insert(argv.index("--dataset") + 1,
+                    _tiny_dataset(tmp_path / "data"))
+        with pytest.raises(SystemExit, match="--maskrcnn-weights"):
+            T.main(argv)
+        return
+    monkeypatch.setattr(T, "resolve_mask_source", None)  # never called
+    assert T.main(_argv("estimation", tmp_path, 1, *more)) == 0
+    with open(tmp_path / "runs" / "train_0" / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    assert [r["value"] for r in rows if r["tag"] == "Estimation/mask"][0] > 0
+
+
+def test_cli_estimation_with_maskrcnn_masks(tmp_path, monkeypatch):
+    """One estimation step through ``main`` on a two-image PNG dataset
+    (one for training, one for validation) with the 'same' mask loss, its
+    masks from the Mask R-CNN on a 64^2 canvas (the CLI's is 512^2): the
+    masks hold detections and the mask loss is not zero."""
+    import numpy as np
+    from kbe_torch.utils.reference_convert import \
+        synthetic_maskrcnn_state_dict
+
+    _narrow_depth(monkeypatch)
+    weights = tmp_path / "maskrcnn.pth"
+    torch.save({k: torch.from_numpy(v) for k, v in
+                synthetic_maskrcnn_state_dict(0).items()}, weights)
+    resolve, masks = T.resolve_mask_source, []
+
+    def small_canvas(args, **kwargs):
+        source = resolve(args, infer_size=64, **kwargs)
+
+        def recorded(image01, disparity=None):
+            out = source(image01, disparity)
+            masks.append(out)
+            return out
+        return recorded
+
+    monkeypatch.setattr(T, "resolve_mask_source", small_canvas)
+    argv = ["--training-mode", "estimation", "--dataset",
+            _tiny_dataset(tmp_path / "data"), "--mask-loss", "same",
+            "--mask-source", "maskrcnn", "--maskrcnn-weights", str(weights),
+            "--batch-size", "1", "--max-steps", "1", "--n-epochs", "1",
+            "--device", "cpu", "--checkpoint-dir", str(tmp_path / "ck"),
+            "--logs-path", str(tmp_path / "runs" / "train_0")]
+    assert T.main(argv) == 0
+    assert masks and all(m.shape == (8, 32, 256, 1) for m in masks)
+    assert all(set(np.unique(m)) <= {0.0, 1.0} for m in masks)
+    assert sum(float(m.sum()) for m in masks) > 0
+    with open(tmp_path / "runs" / "train_0" / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    tags = {r["tag"] for r in rows}
+    assert "Validation/abs_rel" in tags
+    assert [r["value"] for r in rows if r["tag"] == "Estimation/mask"][0] > 0
+    (state,), step = load_checkpoint(latest_checkpoint(
+        str(tmp_path / "ck"), "3dkbe"))
+    assert step == 0 and state["step"] == 1
