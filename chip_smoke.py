@@ -85,6 +85,19 @@ Phases, in order; any failure raises and the script exits non-zero:
          with 'other' at 384x512, batch 8, on the source's masks computed
          in ``Prefetcher``'s thread, twice from one seed, bit-equal, with
          masks and mask losses not zero and two NMS launches an image;
+     (x) data parallel (``kbe_torch.parallel``): one NCCL rank in this
+         process through ``data_parallel_step``, the G+D iteration and an
+         estimation step ('same') at 384x512, batch 8, bit-equal to the
+         trainers without a mesh, both timed; two gloo ranks on the card
+         (subprocesses, 4 + 4) held to the 1-rank step, run by rank 0
+         after its own, whose per-sample nets and D's convolutions and
+         batch statistics run in the ranks' parts (losses rtol 1e-5,
+         gradients 1e-4 relative L2 a leaf, D's leaves where the f32 runs
+         part further refereed by D's float64 gradient, batch norms rtol
+         1e-5, states bit-equal across the ranks, six forward splat
+         kernels and one ``splat_grad`` a local item);
+         ``batch_parallel_effect`` of 4 images at 256^2, 5 steps, on the
+         two ranks, equal to the single-image effect;
   7. the ``{"kernels": [...]}`` line, then the device line last. A row's
      ``launches`` are those of the run named in its ``path``, counted from
      zero just before that run. ``ms`` is the call's time (CUDA events
@@ -96,8 +109,9 @@ The later phases take ``size`` and ``device`` arguments, so each runs
 alone on the card, or at a small size on the CPU, from Python (the kernels
 build at first use): ``CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 -c "import
 chip_smoke as cs; t = cs.training_phase([]); cs.evaluation_phase([], t,
-cs.depth_phase())"`` runs (t), (u) and (v) alone, and ``... -c "import
-chip_smoke as cs; cs.maskrcnn_phase([])"`` runs (w) alone.
+cs.depth_phase())"`` runs (t), (u) and (v) alone, ``... -c "import
+chip_smoke as cs; cs.maskrcnn_phase([])"`` runs (w) alone, and ``... -c
+"import chip_smoke as cs; cs.dp_phase()"`` runs (x) alone.
 
 Tolerances: none for the kernels. Every kernel is exact (``nms`` against
 its plain loop on the card; ``splat_grad`` too, against the
@@ -2229,6 +2243,624 @@ def maskrcnn_phase(rows, size=ESTIMATION_SIZE, device: str = "cuda",
             "step_ms": _step_ms(first)}
 
 
+DP_WORLD = 2                # ranks of (x)'s gloo run on the one card
+DP_EFFECT = dict(size=256, steps=5, images=4)
+DP_GRAD_TOL = 1e-4          # relative L2 a gradient leaf
+DP_LOSS_RTOL = 1e-5
+
+
+class Recorder:
+    """An optimizer that records the gradients it is given (``state['g']``)
+    and passes them on to the real one."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def init(self, params):
+        return {"g": None, "inner": self.inner.init(params)}
+
+    def step(self, params, grads, state):
+        return {"g": [g.detach().clone() for g in grads],
+                "inner": self.inner.step(params, grads, state["inner"])}
+
+
+def _dp_tensors(*states):
+    """Every tensor of training states recorded by ``Recorder``: the
+    modules' (parameters, batch and spectral norms) and the Adam moments."""
+    out = []
+    for st in states:
+        for k in ("context", "net", "disc"):
+            if hasattr(st, k):
+                out += list(getattr(st, k).state_dict().values())
+        out += list(st.opt_state["inner"]["mu"])
+        out += list(st.opt_state["inner"]["nu"])
+    return out
+
+
+def _cpu(tensors):
+    return [t.detach().cpu() for t in tensors]
+
+
+def chunked(obj, name: str, parts: int, batched: int = 99) -> None:
+    """Make ``obj.<name>`` run its batch in ``parts`` equal parts, one after
+    another, and concatenate the outputs (tensors, or tuples and lists of
+    them): a per-sample net as ``parts`` ranks run it. The first
+    ``batched`` arguments carry the batch."""
+    import torch
+
+    fn = getattr(obj, name)
+
+    def run(*args):
+        outs = [fn(*(a.chunk(parts)[i] if k < batched else a
+                     for k, a in enumerate(args))) for i in range(parts)]
+        if torch.is_tensor(outs[0]):
+            return torch.cat(outs)
+        return type(outs[0])(torch.cat(x) for x in zip(*outs))
+    setattr(obj, name, run)
+
+
+def _chunked_adv_forward(trainer, parts: int) -> None:
+    """Make ``trainer._adv_forward`` (the A -> B warp and inpainting) run
+    the batch in ``parts`` equal parts, one after another, and concatenate
+    the outputs: G's nets and every per-sample reduction on the card then
+    see the ranks' batch shapes, whose kernels can sum in another order
+    than the whole batch's."""
+    import torch
+
+    fn = trainer._adv_forward
+
+    def part(tree, i):
+        return {k: part(v, i) if isinstance(v, dict) else v.chunk(parts)[i]
+                for k, v in tree.items()}
+
+    def run(context, net, batch):
+        outs = [fn(context, net, part(batch, i)) for i in range(parts)]
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    trainer._adv_forward = run
+
+
+def _chunked_spectral_conv(conv, parts: int) -> None:
+    """Make a ``SpectralConv2d`` run its batch in ``parts`` equal parts as
+    ``parts`` ranks run it: each part normalises the kernel itself, from the
+    same power-iteration state, so that the gradient through the kernel's
+    norm (a sum over the whole kernel) is taken part by part and the parts'
+    gradients are summed after it, as the ranks' all-reduce sums them."""
+    import torch
+
+    def run(x, update_stats: bool = False):
+        u = conv.u.clone()
+        outs = []
+        for p in x.chunk(parts):
+            with torch.no_grad():
+                conv.u.copy_(u)
+            outs.append(conv._conv_forward(
+                p, conv.normalized_weight(update_stats), conv.bias))
+        return torch.cat(outs)
+    conv.forward = run
+
+
+def _chunked_batch_norm(bn, parts: int) -> None:
+    """Make a train-mode ``BatchNorm`` run as ``parts`` ranks run it through
+    ``global_mean``, in one process: each part takes its means of x and
+    x^2, an all-reduce stand-in sums them (and, backward, sums the parts'
+    gradients of the sums), and each part normalises with a copy of the
+    global statistics of its own, so that the gradients of the statistics
+    add up part by part before they are summed, in the ranks' order of f32
+    sums (statistics over the whole batch put D's leaves about 5e-6 from
+    the ranks' on an H100)."""
+    import torch
+
+    class PartsSum(torch.autograd.Function):
+        """Each part's copy of the parts' sum; backward, each part's
+        gradient is the sum of the copies' (``_GlobalSum`` over ranks)."""
+
+        @staticmethod
+        def forward(ctx, *xs):
+            total = xs[0]
+            for x in xs[1:]:
+                total = total + x
+            return tuple(total.clone() for _ in xs)
+
+        @staticmethod
+        def backward(ctx, *grads):
+            total = grads[0]
+            for g in grads[1:]:
+                total = total + g
+            return tuple(total.clone() for _ in grads)
+
+    forward = bn.forward
+
+    def run(x, train, mesh=None):
+        if not train:
+            return forward(x, train, mesh)
+        xs = x.chunk(parts)
+        means = PartsSum.apply(*[torch.mean(p, dim=(0, 2, 3)) for p in xs])
+        sqs = PartsSum.apply(*[torch.mean(p * p, dim=(0, 2, 3))
+                               for p in xs])
+        outs = []
+        for i, p in enumerate(xs):
+            mean = means[i] / parts
+            var = torch.clamp(sqs[i] / parts - mean * mean, min=0.0)
+            if i == 0:
+                with torch.no_grad():
+                    keep = bn.momentum
+                    bn.mean.copy_(keep * bn.mean + (1.0 - keep) * mean)
+                    bn.var.copy_(keep * bn.var + (1.0 - keep) * var)
+            mul = torch.rsqrt(var + bn.eps) * bn.scale
+            outs.append((p - mean[None, :, None, None])
+                        * mul[None, :, None, None]
+                        + bn.bias[None, :, None, None])
+        return torch.cat(outs)
+    bn.forward = run
+
+
+def _d_grads_f64(state, inputs, names, device: str):
+    """D's gradients in float64 from ``state`` (its state dict before the
+    step) on the step's fakes and reals, the loss of D's step: the referee
+    of the leaves where two f32 runs part, as ``tests/test_torch_train.py``
+    referees them (f64's order of sums does not matter at this size)."""
+    import torch
+    from kbe_torch.models.discriminator import (MPDDiscriminator,
+                                                adversarial_loss)
+
+    disc = MPDDiscriminator(spectral_norm=True)
+    disc.load_state_dict(state)
+    disc = disc.to(device).double()
+    x = {k: v.double() for k, v in inputs.items()}
+    _deterministic(False, device)  # f64 needs no fixed order of sums
+    try:
+        fake = disc(x["inpaint_img"], x["inpaint_disp"], train=True)
+        real = disc(x["image_a"], x["disp_a"], train=True)
+        loss = 0.5 * (adversarial_loss(fake, False)
+                      + adversarial_loss(real, True))
+        params = dict(disc.named_parameters())
+        grads = torch.autograd.grad(loss, [params[n] for n in names])
+    finally:
+        _deterministic(True, device)
+    return [g.cpu() for g in grads]
+
+
+def _dp_run(mesh, size, device: str, logs: str, label: str,
+            kinds=("adv", "est"), chunks: int = 1, referee: bool = False):
+    """One adversarial G+D iteration (``'adv'``), then one estimation step
+    with the 'same' mask loss (``'est'``), from the training CLI's seeds and
+    synthetic data at ``size`` and the global batch 8: through
+    ``cli.make_trainer(args, mesh)`` and ``make_data(..., mesh)`` and
+    ``data_parallel_step`` with a mesh, through the trainers' own steps
+    without. ``chunks`` runs G's forward (its nets and per-sample
+    reductions), Semantics, Disparity and D's convolutions (each part
+    normalising the spectral-norm kernels itself) on the batch in that many
+    parts, and takes D's batch statistics, as that many ranks do.
+    ``referee`` adds D's gradients in float64 on the G+D iteration's own
+    inputs (``d_f64``). Returns per step its losses, the gradients each
+    optimizer was given, D's batch-norm buffers, ms and launches (on the
+    host), and the final state tensors."""
+    import torch
+    from cli import train_torch as cli
+    from kbe_torch.config import CameraConfig
+    from kbe_torch.models.discriminator import BatchNorm, SpectralConv2d
+    from kbe_torch.parallel import data_parallel_step
+    from kbe_torch.train.trainer_inpaint import TRAIN_CAMERA, to_device
+
+    par = ((lambda f: f) if mesh is None
+           else (lambda f: data_parallel_step(f, mesh)))
+    local = TRAIN_BATCH // (1 if mesh is None else mesh.world_size)
+    out = {}
+
+    if "adv" in kinds:
+        cli.SYNTHETIC_SIZE["inpainting"] = size
+        args = _train_args("inpainting_ref", device, logs + "/adv")
+        trainer = cli.make_trainer(args, mesh=mesh)
+        trainer.tx = Recorder(trainer.tx)
+        trainer.tx_d = Recorder(trainer.tx_d)
+        data, _, _ = cli.make_data(args, "inpainting", TRAIN_CAMERA, mesh)
+        g, d = trainer.init_state(size), trainer.init_disc_state(size)
+        if chunks > 1:
+            _chunked_adv_forward(trainer, chunks)
+            for m in d.disc.modules():
+                if isinstance(m, SpectralConv2d):
+                    _chunked_spectral_conv(m, chunks)
+                elif isinstance(m, torch.nn.Conv2d):
+                    chunked(m, "_conv_forward", chunks, batched=1)
+                elif isinstance(m, BatchNorm):
+                    _chunked_batch_norm(m, chunks)
+        if referee:
+            taken, d_before = {}, {k: v.clone() for k, v in
+                                   d.disc.state_dict().items()}
+            forward = trainer._adv_forward
+
+            def keep(*args):
+                o = forward(*args)
+                taken.update({k: o[k].detach().clone() for k in (
+                    "inpaint_img", "inpaint_disp", "image_a", "disp_a")})
+                return o
+            trainer._adv_forward = keep
+        batch = to_device(next(data), trainer.device)
+        want = splat_counts(68, local)
+        want[GRAD_KEY] = local
+        (g, d, metrics), ms, moved = _step(
+            f"{label} G+D iteration",
+            lambda: par(trainer.adversarial_step)(g, d, batch, True),
+            [g, d], device, want)
+        if not min(moved) > 0.0:
+            raise AssertionError(f"{label} G+D: states moved {moved}")
+        out["adv"] = {
+            "losses": _check_losses(label, metrics), "ms": ms,
+            "launches": launch_counts(),
+            "g": _cpu(g.opt_state["g"]), "d": _cpu(d.opt_state["g"]),
+            "d_names": [n for n, _ in d.disc.named_parameters()
+                        if not n.startswith("core.vgg.")],
+            "bn": {k: v.cpu().clone() for k, v in
+                   d.disc.state_dict().items()
+                   if k.endswith((".bn.mean", ".bn.var"))},
+            "states": _dp_tensors(g, d)}
+        if referee:
+            out["adv"]["d_f64"] = _d_grads_f64(
+                d_before, taken, out["adv"]["d_names"], device)
+        del trainer, data, batch
+
+    if "est" in kinds:
+        cli.SYNTHETIC_SIZE["disparity"] = size
+        args = _train_args("estimation", device, logs + "/est",
+                           "--mask-loss", "same")
+        trainer = cli.make_trainer(args, mesh=mesh)
+        trainer.tx_disparity = Recorder(trainer.tx_disparity)
+        data, _, _ = cli.make_data(args, "disparity",
+                                   CameraConfig(512.0, 74.0), mesh)
+        state = trainer.init_state(size)
+        if chunks > 1:
+            for obj in (trainer.semantics, state.net):
+                chunked(obj, "forward", chunks)
+        batch = next(data)
+        batch.pop("imagenet")
+        batch = to_device(batch, trainer.device)
+        (state, metrics), ms, (moved,) = _step(
+            f"{label} estimation step",
+            lambda: par(trainer.disparity_train_step)(state, batch),
+            [state], device, {})
+        if not moved > 0.0 or not float(metrics["mask"]) > 0.0:
+            raise AssertionError(f"{label} estimation: moved {moved}, mask "
+                                 f"loss {float(metrics['mask'])}")
+        out["est"] = {"losses": _check_losses(label, metrics), "ms": ms,
+                      "g": _cpu(state.opt_state["g"]),
+                      "states": _dp_tensors(state)}
+    return out
+
+
+def _dp_images(size: int, n: int):
+    import numpy as np
+    from kbe_torch.data import demo_scene_image
+
+    rng = np.random.default_rng(11)
+    base = demo_scene_image(size, size)
+    return np.stack([np.clip(base * rng.uniform(0.6, 1.0, 3)
+                             + rng.uniform(0.0, 0.3, 3), 0.0, 1.0)
+                     for _ in range(n)]).astype(np.float32)
+
+
+def _dp_effect(mesh, device: str = "cuda"):
+    """(x) part 3: ``DP_EFFECT['images']`` images through the default
+    effect (f32, seeded nets): ``batch_parallel_effect`` over ``mesh``
+    gathered to rank 0 (with its launches on this rank), or each image's
+    single-image effect with no mesh."""
+    import torch
+    from kbe_torch.config import EffectConfig, ZoomSettings
+    from kbe_torch.parallel import batch_parallel_effect
+    from kbe_torch.pipeline import KenBurnsPipeline
+
+    n, steps = DP_EFFECT["size"], DP_EFFECT["steps"]
+    pipe = KenBurnsPipeline.create(0, effect=EffectConfig(num_steps=steps),
+                                   device=device)
+    fn = pipe.effect_fn(n, n, ZoomSettings.default_3d(n, n))
+    images = _dp_images(n, DP_EFFECT["images"])
+    if mesh is None:
+        return torch.stack([fn(pipe.models, torch.as_tensor(
+            im, device=device)[None]) for im in images]).cpu(), {}
+    clear_launches()
+    frames = batch_parallel_effect(fn, mesh, gather=True)(pipe.models,
+                                                          images)
+    _sync(device)
+    return (None if frames is None else frames.cpu()), launch_counts()
+
+
+def _equal_on_ranks(tensors, mesh) -> bool:
+    """Whether every tensor equals rank 0's, bit for bit, on every rank."""
+    import torch
+    import torch.distributed as dist
+    from kbe_torch.parallel import replicate
+
+    # every rank takes part in every broadcast, whatever it finds
+    same = [torch.equal(t, replicate(mesh, t.clone())) for t in tensors]
+    flag = torch.tensor([int(all(same))], device=mesh.device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=mesh.group)
+    return bool(flag.item())
+
+
+def dp_rank(out_dir: str, size, device: str, batch: int) -> None:
+    """(x) parts 2 and 3 as one rank of ``DP_WORLD`` on the one card, under
+    gloo (NCCL refuses two ranks on one device), from torchrun's
+    environment: the G+D iteration and the estimation step on the rank's
+    part of the global ``batch``, the states compared across the ranks,
+    then ``batch_parallel_effect``; rank 0 then runs the reference, the
+    1-rank steps on the global batch with G's forward, Semantics,
+    Disparity and D's convolutions and statistics run in the ranks' parts
+    (the ranks' order of f32 sums), and D's float64 gradients; writes
+    ``out_dir/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+    from kbe_torch.parallel import data_mesh, initialize_multihost
+
+    global TRAIN_BATCH
+    TRAIN_BATCH = batch
+    if not initialize_multihost(device=device, backend="gloo"):
+        raise RuntimeError("(x) rank: no torchrun environment")
+    mesh = data_mesh(DP_WORLD, device=device)
+    _deterministic(True, device)
+    run = _dp_run(mesh, tuple(size), device, f"{out_dir}/logs{mesh.rank}",
+                  f"(x) rank {mesh.rank} of {DP_WORLD}, gloo,")
+    if mesh.rank == 0:
+        # the 1-rank reference, next in this process: its convolutions of
+        # the ranks' batch shapes then run the plans cuDNN chose for the
+        # step above (which plan it picks can depend on the process's
+        # memory); the other rank waits in the first broadcast below
+        run["ref"] = _dp_run(None, tuple(size), device, f"{out_dir}/ref",
+                             f"(x) rank 0, no mesh, nets in {DP_WORLD} "
+                             "parts", chunks=DP_WORLD, referee=True)
+        for part in run["ref"].values():
+            part.pop("states")
+    for kind in ("adv", "est"):
+        run[kind]["equal"] = _equal_on_ranks(run[kind].pop("states"), mesh)
+    _deterministic(False, device)  # the effect's kernels are deterministic
+    run["frames"], run["effect_launches"] = _dp_effect(mesh, device)
+    if mesh.rank != 0:  # rank 0's gradients stand for both
+        for kind in ("adv", "est"):
+            for k in ("g", "d", "bn"):
+                run[kind].pop(k, None)
+    torch.save(run, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+    mesh.barrier()
+    dist.destroy_process_group()
+
+
+def _rel_l2(got, want) -> float:
+    num = float((got.double() - want.double()).norm())
+    den = float(want.double().norm())
+    return num / den if den > 0 else num
+
+
+def _dp_worst(got, want):
+    """(relative L2 error, leaf) of the leaf of ``got`` furthest from the
+    1-rank run's ``want``."""
+    if len(got) != len(want):
+        return float("inf"), f"{len(got)} leaves for {len(want)}"
+    worst = (0.0, None)
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = _rel_l2(g, w)
+        if err > worst[0]:
+            worst = (err, i)
+    return worst
+
+
+def _d_refereed(got, want, f64, names):
+    """D's leaves against the 1-rank run's: each within ``DP_GRAD_TOL``
+    relative L2, or, where the two f32 runs part further, the ranks' leaf
+    no further from the float64 run's than the 1-rank run's leaf is, plus
+    ``DP_GRAD_TOL`` (D's train-mode batch norms cancel heavily, and each f32
+    run loses digits of its own on a few leaves). A leaf whose float64
+    norm is below 1e-6 of the largest leaf's (a conv bias before a
+    train-mode batch norm, zero in exact arithmetic) is held below that in
+    both runs. Returns (the worst leaf against the 1-rank run, {refereed
+    leaf: (ranks vs f64, 1 rank vs f64)}, [failed leaves])."""
+    norm = lambda t: float(t.double().norm())
+    top = max(norm(t) for t in f64)
+    worst, refereed, failed = (0.0, None), {}, []
+    for name, g, w, x in zip(names, got, want, f64):
+        if norm(x) <= 1e-6 * top:
+            if max(norm(g), norm(w)) > 1e-6 * top:
+                failed.append(name)
+            continue
+        err = _rel_l2(g, w)
+        if err > worst[0]:
+            worst = (err, name)
+        if err > DP_GRAD_TOL:
+            refereed[name] = (_rel_l2(g.double(), x), _rel_l2(w.double(), x))
+            if refereed[name][0] > refereed[name][1] + DP_GRAD_TOL:
+                failed.append(name)
+    if not len(got) == len(want) == len(f64) == len(names):
+        failed.append("leaf count")
+    return worst, refereed, failed
+
+
+def _assert_bit_equal(label, a, b):
+    import torch
+
+    if a["losses"] != b["losses"]:
+        raise AssertionError(f"{label}: losses {a['losses']} vs "
+                             f"{b['losses']}")
+    for key in ("g", "d", "states"):
+        for x, y in zip(a.get(key, []), b.get(key, [])):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{label}: a {key} tensor differs, max "
+                                     f"diff {max_err(x, y)}")
+    for k, v in a.get("bn", {}).items():
+        if not torch.equal(v, b["bn"][k]):
+            raise AssertionError(f"{label}: batch norm {k} differs")
+
+
+def dp_phase(size=TRAIN_SIZE, device: str = "cuda"):
+    """(x) data parallel on the one card, three parts:
+    1. one rank under NCCL in this process (world size 1): the G+D
+       iteration and the estimation step through ``mesh=data_mesh()``,
+       bit-equal (losses, gradients, batch norms, final states) to the
+       trainers without a mesh from the same seed; both timed;
+    2. two ranks on the card under gloo, as subprocesses, the global batch
+       8 split 4 + 4, held to the 1-rank joint-batch step that rank 0
+       runs after its own (``dp_rank``), whose per-sample nets and D's
+       convolutions and statistics run the batch in the ranks' two parts
+       (cuDNN picks
+       convolution algorithms by batch size, and at random weights the
+       estimation loss's log of the clamped disparity turns that into
+       gradients some per cent apart): losses rtol 1e-5, each gradient leaf
+       of G, D and Disparity within 1e-4 relative L2, or, on a D leaf where
+       the two f32 runs part further, the ranks' leaf no further from D's
+       float64 gradient than the 1-rank run's is (plus 1e-4), D's
+       batch-norm buffers rtol 1e-5, states bit-equal across the ranks,
+       per rank six forward splat kernels and one ``splat_grad`` a local
+       batch item on the G step; the step ms (gloo stages every
+       all-reduce through the host: a correctness check, not the cost of
+       NVLink data parallelism);
+    3. ``batch_parallel_effect`` over the two ranks, 4 images at 256^2, 5
+       steps: each image's frames equal its single-image effect's.
+
+    On the CPU (``device='cpu'``, gloo in part 1 too, ``TRAIN_BATCH`` and
+    ``size`` cut) it rehearses the same control flow."""
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from kbe_torch.parallel import data_mesh, initialize_multihost
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    h, w = size
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # part 1: both steps deterministic without a mesh (they warm up
+        # too), then on one NCCL rank
+        _deterministic(True, device)
+        plain = _dp_run(None, size, device, tmp + "/plain", "(x) no mesh")
+        if not initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0,
+                                    device=device):
+            raise RuntimeError("(x) no NCCL process group")
+        try:
+            one = _dp_run(data_mesh(1, device=device), size, device,
+                          tmp + "/one", "(x) 1 NCCL rank")
+        finally:
+            dist.destroy_process_group()
+        for kind in ("adv", "est"):
+            _assert_bit_equal(f"(x) 1 NCCL rank, {kind}", one[kind],
+                              plain[kind])
+        log(f"(x) 1 NCCL rank through data_parallel_step, {h}x{w}, batch "
+            f"{TRAIN_BATCH}: G+D iteration {one['adv']['ms']:.1f} ms (no "
+            f"mesh {plain['adv']['ms']:.1f} ms), estimation step "
+            f"{one['est']['ms']:.1f} ms (no mesh {plain['est']['ms']:.1f} "
+            f"ms); losses, gradients, batch norms and "
+            f"{len(one['adv']['states']) + len(one['est']['states'])} state "
+            "tensors bit-equal to the trainers without a mesh")
+        del one
+        for part in plain.values():
+            part.pop("states")
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        # parts 2 and 3 on two gloo ranks, and the reference on rank 0
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(free_port()), WORLD_SIZE=str(DP_WORLD),
+                   LOCAL_RANK="0")
+        t_ranks = time.perf_counter()
+        call = (f"import chip_smoke as cs; cs.dp_rank({tmp!r}, "
+                f"{tuple(size)!r}, {device!r}, {TRAIN_BATCH})")
+        procs = [subprocess.Popen([sys.executable, "-c", call], cwd=HERE,
+                                  env=dict(env, RANK=str(r)))
+                 for r in range(DP_WORLD)]
+        try:
+            for r, p in enumerate(procs):
+                if p.wait(timeout=600) != 0:
+                    raise AssertionError(f"(x) rank {r} failed: exit "
+                                         f"{p.returncode}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DP_WORLD)]
+        wall = time.perf_counter() - t_ranks
+    got, ref = ranks[0], ranks[0].pop("ref")
+    groups = (("G", "adv", "g"), ("D", "adv", "d"), ("Disparity", "est", "g"))
+    worst = {name: _dp_worst(got[kind][key], ref[kind][key])
+             for name, kind, key in groups if name != "D"}
+    worst["D"], refereed, d_failed = _d_refereed(
+        got["adv"]["d"], ref["adv"]["d"], ref["adv"]["d_f64"],
+        ref["adv"]["d_names"])
+
+    def apart(a, b):
+        return max(_rel_l2(x, y) for x, y in zip(a, b))
+
+    by_parts = {name: apart(ref[kind][key], plain[kind][key])
+                for name, kind, key in groups}
+    nbytes = {name: 4 * sum(t.numel() for t in plain[kind][key])
+              for name, kind, key in groups}
+    log(f"(x) {DP_WORLD} gloo ranks on one card, {h}x{w}, global batch "
+        f"{TRAIN_BATCH} ({TRAIN_BATCH // DP_WORLD} a rank): G+D iteration "
+        f"{[round(r['adv']['ms'], 1) for r in ranks]} ms, estimation step "
+        f"{[round(r['est']['ms'], 1) for r in ranks]} ms a rank (gloo "
+        "stages every all-reduce through the host: a correctness check, "
+        f"not NVLink data parallelism); worst gradient leaf against the "
+        f"1-rank run (relative L2, limit {DP_GRAD_TOL}): "
+        f"{json.dumps(worst)}; D's leaves beyond it against float64 (ranks, "
+        f"1 rank): {json.dumps(refereed)}; the 1-rank step with its nets "
+        f"in {DP_WORLD} parts against the whole batch (worst leaf) "
+        f"{json.dumps(by_parts)}"
+        f"; gradient bytes all-reduced a step {json.dumps(nbytes)}; "
+        f"launches a rank {json.dumps(got['adv']['launches'])}; the two "
+        f"ranks' processes {wall:.1f} s, rank 0's reference run included")
+    for r, run in enumerate(ranks):
+        for kind in ("adv", "est"):
+            if not run[kind]["equal"]:
+                raise AssertionError(f"(x) rank {r} {kind}: states differ "
+                                     "across the ranks")
+            for k, v in ref[kind]["losses"].items():
+                if abs(run[kind]["losses"][k] - v) > DP_LOSS_RTOL * abs(v) \
+                        + 1e-7:
+                    raise AssertionError(
+                        f"(x) rank {r} {kind} loss {k}: "
+                        f"{run[kind]['losses'][k]} vs 1 rank {v}")
+    bad = {k: v for k, v in worst.items()
+           if k != "D" and not v[0] <= DP_GRAD_TOL}
+    if d_failed:
+        bad["D"] = d_failed
+    if bad:
+        raise AssertionError(f"(x) 2 ranks: gradients part from the 1-rank "
+                             f"run's: {bad}")
+    for k, v in ref["adv"]["bn"].items():
+        np.testing.assert_allclose(got["adv"]["bn"][k].numpy(), v.numpy(),
+                                   rtol=1e-5, atol=1e-7, err_msg=k)
+    log(f"(x) losses within rtol {DP_LOSS_RTOL}, gradient leaves within "
+        f"{DP_GRAD_TOL} (D's {len(refereed)} refereed leaves no further from "
+        "float64 than the 1-rank run's), batch norms within rtol 1e-5 of "
+        "the 1-rank run; states bit-equal across the ranks")
+
+    # part 3
+    _deterministic(False, device)  # the effect's kernels are deterministic
+    want, _ = _dp_effect(None, device)
+    frames = got["frames"]
+    if frames is None or not torch.equal(frames, want):
+        raise AssertionError("(x) batch_parallel_effect: frames differ from "
+                             "the single-image effect's")
+    n, steps = DP_EFFECT["size"], DP_EFFECT["steps"]
+    per_rank = DP_EFFECT["images"] // DP_WORLD
+    want_counts = ({**splat_counts(4, steps * per_rank),
+                    **splat_counts(68, 2 * per_rank),
+                    "discfill": steps * per_rank} if device == "cuda"
+                   else {})
+    for r, run in enumerate(ranks):
+        if run["effect_launches"] != want_counts:
+            raise AssertionError(f"(x) effect rank {r}: launches "
+                                 f"{run['effect_launches']}, want "
+                                 f"{want_counts}")
+    log(f"(x) batch_parallel_effect, {DP_EFFECT['images']} images at {n}^2 "
+        f"x {steps} steps on {DP_WORLD} ranks: frames {tuple(frames.shape)} "
+        f"equal to each image's single-image effect; launches a rank "
+        f"{json.dumps(want_counts)}")
+    log(f"(x) {time.perf_counter() - t_phase:.1f} s in all (part 1 "
+        f"{t_ranks - t_phase:.1f} s)")
+
+
 def main() -> int:
     # cuBLAS is deterministic under torch.use_deterministic_algorithms only
     # with a fixed workspace, which must be set before its first call
@@ -2281,7 +2913,10 @@ def main() -> int:
     cli_phase()
     trained = training_phase(more)
     evaluation_phase(more, trained, depth_phase())
+    del trained
     maskrcnn_phase(more)
+    torch.cuda.empty_cache()
+    dp_phase()
     for row in more:
         if "mode" in row:
             mode = row["mode"]

@@ -9,12 +9,21 @@ refinement net behind the frozen disparity net of ``--model-path``),
 ``--mask-source maskrcnn --maskrcnn-weights <torchvision .pth>`` takes a
 ``--dataset``'s instance masks from the port's Mask R-CNN on the card, as
 the reference does; ``--synthetic`` keeps the generator's own masks.
-``--data-parallel`` raises, naming the ``ROADMAP.md`` Queue 1 item that
-brings it.
+
+``--data-parallel`` trains on every rank that torchrun starts (or its
+environment describes: ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
+``RANK``, ``LOCAL_RANK``), one process a card, over NCCL (gloo with
+``--device cpu``); without that environment it trains on one rank. Rank r
+computes on ``cuda:LOCAL_RANK``. ``--batch-size`` is the global batch and
+must divide by the number of ranks; each rank loads its part of each batch,
+and a step is the 1-rank step on the whole batch (``kbe_torch.parallel``).
+Rank 0 alone validates and writes logs and checkpoints.
 
 Usage:
   python cli/train_torch.py --training-mode estimation --synthetic \\
       --mask-loss same --max-steps 3 [--device cpu]
+  torchrun --nproc_per_node=4 cli/train_torch.py --data-parallel \\
+      --training-mode inpainting_ref --synthetic --batch-size 32
 
 Checkpoints are ``<checkpoint-dir>/<save-name>-<step>.tar``, written every
 500 iterations and when the run stops; ``--continue-training`` resumes the
@@ -139,15 +148,20 @@ def resolve_mask_source(args, max_instances: int = 8,
     return source
 
 
-def make_data(args, mode: str, camera):
+def make_data(args, mode: str, camera, mesh=None):
     """(train iterator, validation iterator factory, image size) of the
     trainer mode ``mode``: 'disparity', 'refine' or 'inpainting'. In
     'disparity' mode with a mask loss the batches carry instance masks
     (the synthetic generator's own, or ``--mask-source``'s through
-    ``resolve_mask_source``)."""
+    ``resolve_mask_source``). With a ``mesh`` the training batches are the
+    rank's parts of the global ones; validation batches stay whole, and
+    draw from a seed of their own."""
+    import numpy as np
+
     from kbe_torch.train.data import KBEDataset, Prefetcher, \
         synthetic_batches
 
+    shard = None if mesh is None else (mesh.rank, mesh.world_size)
     with_masks = args.mask_loss != "none" and mode == "disparity"
     if args.synthetic or not args.dataset:
         if not args.synthetic:
@@ -155,7 +169,8 @@ def make_data(args, mode: str, camera):
         size = SYNTHETIC_SIZE[mode]
         train_iter = synthetic_batches(args.batch_size, *size, mode=mode,
                                        camera=camera, steps=args.max_steps,
-                                       with_instance_masks=with_masks)
+                                       with_instance_masks=with_masks,
+                                       shard=shard)
         val_factory = lambda: synthetic_batches(
             args.batch_size, *size, mode=mode, camera=camera, seed=1,
             steps=4)
@@ -169,21 +184,42 @@ def make_data(args, mode: str, camera):
                          max_instances=max_instances)
     train_idx, val_idx = dataset.split()
     train_iter = Prefetcher(dataset.batches(train_idx, args.batch_size,
-                                            epochs=args.n_epochs))
+                                            epochs=args.n_epochs,
+                                            shard=shard))
+    # validation draws from generators of its own: the dataset's stream is
+    # the training batches' alone, drawn in the prefetch thread, and alike on
+    # every rank while rank 0 alone validates
     val_factory = lambda: dataset.batches(val_idx, args.batch_size,
-                                          shuffle=False, epochs=1)
-    size = dataset.load_item(0)["image"].shape[:2]
+                                          shuffle=False, epochs=1,
+                                          rng=np.random.default_rng(1))
+    size = dataset.load_item(0, np.random.default_rng(0))["image"].shape[:2]
     return train_iter, val_factory, size
 
 
 DEPTH_MODES = {"estimation": "disparity", "refinement": "refine"}
 
 
-def make_trainer(args, **kwargs):
+def make_mesh(args):
+    """``--data-parallel``'s mesh: the ranks of torchrun's environment, one
+    process a device (NCCL, or gloo with ``--device cpu``), or one rank
+    without it. ``--batch-size`` must divide by their number."""
+    from kbe_torch.parallel import data_mesh, initialize_multihost
+
+    initialize_multihost(device=args.device)
+    mesh = data_mesh(device=args.device)
+    if args.batch_size % mesh.world_size:
+        raise SystemExit(f"--batch-size {args.batch_size} is the global batch"
+                         f" and must divide by the {mesh.world_size} ranks")
+    return mesh
+
+
+def make_trainer(args, mesh=None, **kwargs):
     """The trainer of the parsed flags: ``TrainerDepth`` for estimation and
     refinement (fresh seeded ``Semantics`` weights; no dataset or trained
-    weights are in the repo), ``TrainerInpaint`` for the inpainting modes;
-    ``kwargs`` go to it (the GAN balancing, for a short run)."""
+    weights are in the repo), ``TrainerInpaint`` for the inpainting modes,
+    on ``mesh``'s device where there is one; ``kwargs`` go to it (the GAN
+    balancing, for a short run)."""
+    device = args.device if mesh is None else mesh.device
     if args.training_mode in DEPTH_MODES:
         from kbe_torch.train.trainer_depth import TrainerDepth
 
@@ -196,7 +232,7 @@ def make_trainer(args, **kwargs):
              "mask_loss": args.mask_loss,
              "init": args.init,
              "save_name": args.save_name},
-            device=args.device, logs_path=args.logs_path, **kwargs)
+            device=device, logs_path=args.logs_path, mesh=mesh, **kwargs)
     from kbe_torch.train.trainer_inpaint import TrainerInpaint
 
     return TrainerInpaint(
@@ -209,7 +245,7 @@ def make_trainer(args, **kwargs):
          "adversarial": args.training_mode == "inpainting_ref",
          "init": args.init,
          "save_name": args.save_name},
-        device=args.device, logs_path=args.logs_path, **kwargs)
+        device=device, logs_path=args.logs_path, mesh=mesh, **kwargs)
 
 
 def _resume(args, trainer, size, pretrained):
@@ -242,10 +278,6 @@ def _resume(args, trainer, size, pretrained):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel needs the port of kbe_tpu/parallel "
-            "(ROADMAP.md Queue 1 item 2)")
     if args.mask_loss == "other" and args.mask_loss_dataset is None \
             and args.dataset and not args.synthetic:
         print("--mask-loss other requires --mask-loss-dataset (the "
@@ -265,13 +297,14 @@ def main(argv=None) -> int:
     from kbe_torch.train.trainer_inpaint import TRAIN_CAMERA
 
     if resolve_device(args.device).type == "cuda":
-        deterministic_training()
-    trainer = make_trainer(args)
+        deterministic_training()  # in every rank, before CUDA starts
+    mesh = make_mesh(args) if args.data_parallel else None
+    trainer = make_trainer(args, mesh=mesh)
     if mode in DEPTH_MODES:
         from kbe_torch.config import CameraConfig
 
         train_iter, val_factory, size = make_data(
-            args, DEPTH_MODES[mode], CameraConfig(512.0, 74.0))
+            args, DEPTH_MODES[mode], CameraConfig(512.0, 74.0), mesh)
         pretrained = {}
         if args.model_path:
             pretrained["disparity"] = load_pretrained_params(
@@ -280,7 +313,7 @@ def main(argv=None) -> int:
                                          pretrained=pretrained, **kw)
     else:
         train_iter, val_factory, size = make_data(args, "inpainting",
-                                                  TRAIN_CAMERA)
+                                                  TRAIN_CAMERA, mesh)
         pretrained = None
         if args.model_path:
             pretrained = load_pretrained_params(args.model_path, "inpaint")
@@ -294,15 +327,23 @@ def main(argv=None) -> int:
         resume_state, resume_step = resumed
     ckpt_cb = lambda state, step: save_checkpoint(
         args.checkpoint_dir, args.save_name, state, step)
-    final = run(max_steps=args.max_steps, checkpoint_cb=ckpt_cb,
-                resume_state=resume_state, resume_step=resume_step)
+    try:
+        final = run(max_steps=args.max_steps, checkpoint_cb=ckpt_cb,
+                    resume_state=resume_state, resume_step=resume_step)
+    finally:
+        train_iter.close()  # a Prefetcher's thread, or a generator
     if mode == "refinement":  # only the refine state is checkpointed
         final = final[1]
-    if trainer.iter_nb > resume_step:
+    if trainer.iter_nb > resume_step and (mesh is None or mesh.is_chief):
         # the state after the last iteration run, resumed at the next one
         path = ckpt_cb(final, trainer.iter_nb - 1)
         print(f"saved {path}")
     trainer.writer.close()
+    if mesh is not None and mesh.group is not None:
+        import torch.distributed as dist
+
+        mesh.barrier()
+        dist.destroy_process_group()
     return 0
 
 

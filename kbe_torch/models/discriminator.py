@@ -18,7 +18,10 @@ gradients differ:
 
 ``BatchNorm`` (Flax ``nn.BatchNorm``): batch mean and the *biased* variance
 E[x^2] - E[x]^2 (clipped at 0), running averages at momentum 0.99, eps
-1e-5; the gradient flows through the batch statistics. ``torch.nn.
+1e-5; the gradient flows through the batch statistics. Given a ``mesh``
+(``kbe_torch.parallel``), as the data-parallel step passes one, E[x] and
+E[x^2] are the global batch's, so every rank normalises alike and keeps
+equal running averages. ``torch.nn.
 BatchNorm2d`` keeps the unbiased variance and the other momentum.
 
 ``SpectralConv2d`` (Flax ``nn.SpectralNorm`` around a conv): the kernel,
@@ -42,6 +45,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from kbe_torch.models.vgg import VGG16Features
+from kbe_torch.parallel.dp import global_mean
 
 
 class BatchNorm(nn.Module):
@@ -57,11 +61,12 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool,
+                mesh=None) -> torch.Tensor:
         if train:
-            mean = torch.mean(x, dim=(0, 2, 3))
-            var = torch.clamp(torch.mean(x * x, dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
+            mean = global_mean(torch.mean(x, dim=(0, 2, 3)), mesh)
+            var = torch.clamp(global_mean(torch.mean(x * x, dim=(0, 2, 3)),
+                                          mesh) - mean * mean, min=0.0)
             with torch.no_grad():
                 keep = self.momentum
                 self.mean.copy_(keep * self.mean + (1.0 - keep) * mean)
@@ -126,10 +131,10 @@ class ConvBlock(nn.Module):
                           padding=1, dilation=dilation)
         self.bn = BatchNorm(features) if use_bn else None
 
-    def forward(self, x, train: bool = True):
+    def forward(self, x, train: bool = True, mesh=None):
         x = _apply_conv(self.conv, x, train)
         if self.bn is not None:
-            x = self.bn(x, train)
+            x = self.bn(x, train, mesh)
         return F.leaky_relu(x, 0.2)
 
 
@@ -178,15 +183,15 @@ class Discriminator(nn.Module):
             cin = feat
         self.out = nn.Conv2d(cin, 1, 4, padding=1)
 
-    def forward_nchw(self, x, train: bool = True):
+    def forward_nchw(self, x, train: bool = True, mesh=None):
         for i in range(self.n):
-            x = getattr(self, f"block{i}")(x, train)
+            x = getattr(self, f"block{i}")(x, train, mesh)
         return self.out(x)
 
-    def forward(self, image, train: bool = True):
+    def forward(self, image, train: bool = True, mesh=None):
         """(B, H, W, C) -> patch logits (B, h, w, 1)."""
-        return self.forward_nchw(image.permute(0, 3, 1, 2),
-                                 train).permute(0, 2, 3, 1)
+        return self.forward_nchw(image.permute(0, 3, 1, 2), train,
+                                 mesh).permute(0, 2, 3, 1)
 
 
 class PerceptualDiscriminator(nn.Module):
@@ -200,10 +205,10 @@ class PerceptualDiscriminator(nn.Module):
                 256, 256, spectral_norm=spectral_norm))
         self.out = nn.Conv2d(256, 1, 4, padding=1)
 
-    def forward(self, image, train: bool = True):
+    def forward(self, image, train: bool = True, mesh=None):
         h = self.vgg.forward_nchw(image.permute(0, 3, 1, 2))[-1]
         for i in range(3):
-            h = getattr(self, f"block{i}")(h, train)
+            h = getattr(self, f"block{i}")(h, train, mesh)
         return self.out(h).permute(0, 2, 3, 1)
 
 
@@ -233,7 +238,7 @@ class _MultiScaleCore(nn.Module):
         self.main = Discriminator(channels=chans[2], dilation=(8, 4, 1),
                                   stride=(1, 1, 1), spectral_norm=sn)
 
-    def forward(self, x, vgg_input=None, train: bool = True):
+    def forward(self, x, vgg_input=None, train: bool = True, mesh=None):
         """NCHW in; the three heads' sigmoids, NHWC."""
         if self.use_vgg:
             f1, f2, f3 = self.vgg.forward_nchw(vgg_input)
@@ -248,9 +253,9 @@ class _MultiScaleCore(nn.Module):
             h2 = self.pyr1(h1, train)
             h3 = self.pyr2(h2, train)
             local1_in, local2_in, main_in = h2, h3, h3
-        heads = (self.local1.forward_nchw(local1_in, train),
-                 self.local2.forward_nchw(local2_in, train),
-                 self.main.forward_nchw(main_in, train))
+        heads = (self.local1.forward_nchw(local1_in, train, mesh),
+                 self.local2.forward_nchw(local2_in, train, mesh),
+                 self.main.forward_nchw(main_in, train, mesh))
         return [torch.sigmoid(p).permute(0, 2, 3, 1) for p in heads]
 
 
@@ -260,9 +265,10 @@ class MultiScalePerceptualDiscriminator(nn.Module):
         super().__init__()
         self.core = _MultiScaleCore(True, 3, spectral_norm)
 
-    def forward(self, image, train: bool = True) -> List[torch.Tensor]:
+    def forward(self, image, train: bool = True,
+                mesh=None) -> List[torch.Tensor]:
         x = image.permute(0, 3, 1, 2)
-        return self.core(x, vgg_input=x, train=train)
+        return self.core(x, vgg_input=x, train=train, mesh=mesh)
 
 
 class MultiScaleDiscriminator(nn.Module):
@@ -271,8 +277,9 @@ class MultiScaleDiscriminator(nn.Module):
         super().__init__()
         self.core = _MultiScaleCore(False, 3, spectral_norm)
 
-    def forward(self, image, train: bool = True) -> List[torch.Tensor]:
-        return self.core(image.permute(0, 3, 1, 2), train=train)
+    def forward(self, image, train: bool = True,
+                mesh=None) -> List[torch.Tensor]:
+        return self.core(image.permute(0, 3, 1, 2), train=train, mesh=mesh)
 
 
 class MPDDiscriminator(nn.Module):
@@ -283,12 +290,13 @@ class MPDDiscriminator(nn.Module):
         super().__init__()
         self.core = _MultiScaleCore(True, 4, spectral_norm)
 
-    def forward(self, image, disparity, train: bool = True
+    def forward(self, image, disparity, train: bool = True, mesh=None
                 ) -> List[torch.Tensor]:
         """(B, H, W, 3) image and (B, H, W, 1) disparity -> the sigmoid
         patch maps of the three heads, NHWC."""
         x = torch.cat([image, disparity], dim=-1).permute(0, 3, 1, 2)
-        return self.core(x, vgg_input=image.permute(0, 3, 1, 2), train=train)
+        return self.core(x, vgg_input=image.permute(0, 3, 1, 2), train=train,
+                         mesh=mesh)
 
 
 def adversarial_loss(predictions, is_real: bool) -> torch.Tensor:

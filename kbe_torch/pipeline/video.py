@@ -76,3 +76,23 @@ def write_video(frames: np.ndarray, output_path: str, fps: int = 25,
         for i, f in enumerate(seq):
             iio.imwrite(os.path.join(seq_dir, f"{i:04d}.png"), f)
         return seq_dir
+
+
+def write_image(path: str, image: np.ndarray) -> str:
+    """Write an (H, W, 3) uint8 RGB image with imageio, else with cv2, as
+    the frames are written; raises ImportError where neither is installed.
+    Returns the path."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    try:
+        import imageio.v2 as iio
+    except ImportError:
+        try:
+            import cv2
+        except ImportError:
+            raise ImportError("writing an image needs imageio or cv2, and "
+                              "neither is installed") from None
+        if not cv2.imwrite(path, np.ascontiguousarray(image[..., ::-1])):
+            raise OSError(f"cv2 could not write {path}")
+        return path
+    iio.imwrite(path, image)
+    return path

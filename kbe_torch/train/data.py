@@ -11,7 +11,11 @@ mode-dependent downscale ratios (disparity {img/2, disp/4}, refine/eval
 inpainting. Batches are numpy dicts; ``Prefetcher`` overlaps their making
 with the device's work in a background thread. ``synthetic_batches`` makes
 procedural RGBD batches (planes and boxes) from a seed, the same draws as
-the JAX package's, for tests, demos and runs with no dataset.
+the JAX package's, for tests, demos and runs with no dataset. Both can
+yield one rank's part of each global batch (``shard``), for data-parallel
+training. ``KBEDataset`` draws an item's crop and zoom from a generator of
+its own, so that a rank loads its items alone; its stream is thus not the
+JAX package's.
 """
 
 from __future__ import annotations
@@ -146,9 +150,14 @@ class KBEDataset:
         n_train = int(train_frac * len(self.items))
         return perm[:n_train], perm[n_train:]
 
-    def load_item(self, index: int) -> Dict[str, np.ndarray]:
+    def load_item(self, index: int,
+                  rng: Optional[np.random.Generator] = None
+                  ) -> Dict[str, np.ndarray]:
+        """Item ``index``, its random crop and zoom drawn from ``rng``
+        (default: the dataset's own stream)."""
         import cv2
 
+        rng = self.rng if rng is None else rng
         img_path, depth_path, ds_id = self.items[index]
         ds = self.datasets[ds_id]
         focal = ds["params"]["focal"]
@@ -162,8 +171,8 @@ class KBEDataset:
         # random 756x1024 crop (utils/data_loader.py:117-124)
         h, w = image.shape[:2]
         if h >= CROP_H and w >= CROP_W:
-            sh = self.rng.integers(0, h - CROP_H + 1)
-            sw = self.rng.integers(0, w - CROP_W + 1)
+            sh = rng.integers(0, h - CROP_H + 1)
+            sw = rng.integers(0, w - CROP_W + 1)
             image = image[sh:sh + CROP_H, sw:sw + CROP_W]
             depth = depth[sh:sh + CROP_H, sw:sw + CROP_W]
             disparity = disparity[sh:sh + CROP_H, sw:sw + CROP_W]
@@ -193,7 +202,7 @@ class KBEDataset:
         }
         if self.mode in ("inpainting", "inpaint-eval"):
             dh, dw = disparity.shape[:2]
-            item["zoom"] = get_random_zoom(self.rng, dh, dw)
+            item["zoom"] = get_random_zoom(rng, dh, dw)
         if self.mask_source is not None and self.mode == "disparity":
             dsp = item["disparity"][..., 0]
             dh2, dw2 = dsp.shape
@@ -210,22 +219,25 @@ class KBEDataset:
         return instance_masks_from_image(
             image01, max_instances=self.max_instances)
 
-    def load_imagenet_batch(self, batch_size: int,
-                            size: Tuple[int, int]) -> Optional[Dict]:
+    def load_imagenet_batch(self, batch_size: int, size: Tuple[int, int],
+                            rng: Optional[np.random.Generator] = None
+                            ) -> Optional[Dict]:
         """Auxiliary natural-image batch for the 'other' mask-loss mode:
         the reference bundles a random ImageNet image per item and runs
         Mask-RCNN on it (utils/data_loader.py:162-173,
         training/train_depth.py:261-288); here the masks come from
-        ``mask_source`` ('image' or a callable)."""
+        ``mask_source`` ('image' or a callable). The images are drawn from
+        ``rng`` (default: the dataset's own stream)."""
         import cv2
 
         if not self.imagenet_paths or self.mask_source is None:
             return None
+        rng = self.rng if rng is None else rng
         h, w = size
         imgs, masks = [], []
         for _ in range(batch_size):
             path = self.imagenet_paths[
-                int(self.rng.integers(len(self.imagenet_paths)))]
+                int(rng.integers(len(self.imagenet_paths)))]
             im = cv2.imread(path, cv2.IMREAD_COLOR)
             im = cv2.cvtColor(im, cv2.COLOR_BGR2RGB)
             im = cv2.resize(im, (w, h), interpolation=cv2.INTER_AREA)
@@ -237,19 +249,37 @@ class KBEDataset:
 
     def batches(self, indices, batch_size: int, shuffle: bool = True,
                 epochs: Optional[int] = None,
-                drop_remainder: bool = True) -> Iterator[Dict]:
+                drop_remainder: bool = True,
+                shard: Optional[Tuple[int, int]] = None,
+                rng: Optional[np.random.Generator] = None
+                ) -> Iterator[Dict]:
+        """Batches of ``batch_size`` items. ``rng`` (default: the dataset's
+        own stream) draws the order and, for every item of a batch, the
+        seed of the item's own generator, from which the item draws its
+        crop and zoom. ``shard`` = (rank, world size) yields the rank's
+        contiguous part of each batch and loads no other item: the stream
+        draws alike on every rank, so the ranks' parts of step t make up
+        the 1-rank batch of step t. That holds while only the training
+        batches draw from the stream: validation, which rank 0 alone runs,
+        passes a generator of its own. The auxiliary batch of the 'other'
+        mask loss is the whole batch's on every rank."""
+        rng = self.rng if rng is None else rng
         epoch = 0
         indices = np.asarray(indices)
+        part = _local_part(batch_size, shard)
         while epochs is None or epoch < epochs:
-            order = (self.rng.permutation(indices) if shuffle else indices)
+            order = (rng.permutation(indices) if shuffle else indices)
             for i in range(0, len(order) - batch_size + 1, batch_size):
-                items = [self.load_item(j) for j in order[i:i + batch_size]]
+                seeds = rng.integers(2 ** 63, size=batch_size)
+                items = [self.load_item(j, np.random.default_rng(sd))
+                         for j, sd in zip(order[i:i + batch_size][part],
+                                          seeds[part])]
                 batch = _collate(items, self.mode)
                 if (self.imagenet_paths and self.mask_source is not None
                         and self.mode == "disparity"):
                     h, w = batch["disparity"].shape[1:3]
                     batch["imagenet"] = self.load_imagenet_batch(
-                        batch_size, (h, w))
+                        batch_size, (h, w), rng)
                 yield batch
             epoch += 1
 
@@ -352,37 +382,77 @@ def instance_masks_from_image(image01: np.ndarray,
     return masks
 
 
+def _draw_scene(rng: np.random.Generator, height: int, width: int):
+    """One procedural item's draws, in the generator's order: the
+    background's depth and colour, then each of 1-3 boxes' (height, width,
+    y, x, depth, colour)."""
+    depth = rng.uniform(30, 90)
+    color = rng.uniform(0, 1, 3)
+    boxes = []
+    for _ in range(rng.integers(1, 4)):
+        bh = rng.integers(height // 6, height // 2)
+        bw = rng.integers(width // 6, width // 2)
+        y = rng.integers(0, height - bh)
+        x = rng.integers(0, width - bw)
+        boxes.append((bh, bw, y, x, rng.uniform(10, 40),
+                      rng.uniform(0, 1, 3)))
+    return depth, color, boxes
+
+
+def _render_scene(draws, height: int, width: int, max_instances: int):
+    """(depth, image in [0, 1], per-box masks) of one item's draws."""
+    base, color, boxes = draws
+    depth = np.full((height, width), base, np.float32)
+    img = color.astype(np.float32) * np.ones((height, width, 3), np.float32)
+    masks = np.zeros((max_instances, height, width, 1), np.float32)
+    for b, (bh, bw, y, x, d, c) in enumerate(boxes):
+        depth[y:y + bh, x:x + bw] = d
+        img[y:y + bh, x:x + bw] = c
+        if b < max_instances:
+            masks[b, y:y + bh, x:x + bw, 0] = 1.0
+    return depth, img, masks
+
+
+def _local_part(batch_size: int, shard: Optional[Tuple[int, int]]) -> slice:
+    """The contiguous items of rank ``shard[0]`` of ``shard[1]`` in a global
+    batch, as a JAX ``P('data')`` shard holds them; all with no shard."""
+    rank, count = shard or (0, 1)
+    if batch_size % count:
+        raise ValueError(f"a global batch of {batch_size} does not divide "
+                         f"over {count} ranks")
+    b = batch_size // count
+    return slice(rank * b, (rank + 1) * b)
+
+
 def synthetic_batches(batch_size: int, height: int, width: int,
                       mode: str = "disparity",
                       camera: CameraConfig = CameraConfig(512.0, 74.0),
                       seed: int = 0,
                       steps: Optional[int] = None,
                       with_instance_masks: bool = False,
-                      max_instances: int = 4) -> Iterator[Dict]:
+                      max_instances: int = 4,
+                      shard: Optional[Tuple[int, int]] = None
+                      ) -> Iterator[Dict]:
     """Procedural RGBD batches (planes + boxes) for tests, demos and
     benchmarks — the environment ships no DIML/GTA/MegaDepth data.
     ``with_instance_masks`` adds the generator's true per-box masks
-    (the mask-loss source the reference gets from Mask-RCNN)."""
+    (the mask-loss source the reference gets from Mask-RCNN).
+
+    ``shard`` = (rank, world size) yields the rank's contiguous part of
+    each global batch of ``batch_size``: every rank draws every item, so
+    the ranks' parts of step t make up the 1-rank batch of step t, and
+    renders its own; the auxiliary batch stays the whole batch's."""
     rng = np.random.default_rng(seed)
+    part = _local_part(batch_size, shard)
     n = 0
     while steps is None or n < steps:
+        draws = [_draw_scene(rng, height, width) for _ in range(batch_size)]
+        # the auxiliary batch holds every item's image
+        made = slice(None) if with_instance_masks else part
         imgs, disps, inst = [], [], []
-        for _ in range(batch_size):
-            depth = np.full((height, width), rng.uniform(30, 90), np.float32)
-            img = rng.uniform(0, 1, 3).astype(np.float32) * np.ones(
-                (height, width, 3), np.float32)
-            item_masks = np.zeros((max_instances, height, width, 1),
-                                  np.float32)
-            for b in range(rng.integers(1, 4)):
-                bh = rng.integers(height // 6, height // 2)
-                bw = rng.integers(width // 6, width // 2)
-                y = rng.integers(0, height - bh)
-                x = rng.integers(0, width - bw)
-                d = rng.uniform(10, 40)
-                depth[y:y + bh, x:x + bw] = d
-                img[y:y + bh, x:x + bw] = rng.uniform(0, 1, 3)
-                if b < max_instances:
-                    item_masks[b, y:y + bh, x:x + bw, 0] = 1.0
+        for item in draws[made]:
+            depth, img, item_masks = _render_scene(item, height, width,
+                                                   max_instances)
             disp = camera.focal * camera.baseline / (depth + 1e-4)
             imgs.append(img * 2.0 - 1.0)
             disps.append(disp)
@@ -405,13 +475,12 @@ def synthetic_batches(batch_size: int, height: int, width: int,
             batch["instance_masks"] = inst_np
             # the 'other'-mode auxiliary batch reuses the same procedural
             # images (stand-in for the reference's ImageNet images)
-            batch["imagenet"] = {
-                "image": batch["image"].copy(),
-                "instance_masks": inst_np,
-            }
+            aux = {"image": batch["image"].copy(), "instance_masks": inst_np}
+            batch = {k: v[part] for k, v in batch.items()}
+            batch["imagenet"] = aux
         if mode == "inpainting":
             zs = [get_random_zoom(rng, height, width)
-                  for _ in range(batch_size)]
+                  for _ in range(batch_size)][part]
             batch["zoom"] = {k: np.asarray([z[k] for z in zs], np.float32)
                              for k in zs[0]}
         n += 1
@@ -420,21 +489,41 @@ def synthetic_batches(batch_size: int, height: int, width: int,
 
 class Prefetcher:
     """Background-thread batch prefetcher (replaces torch DataLoader
-    workers, utils/data_loader.py:199-201)."""
+    workers, utils/data_loader.py:199-201). ``close`` stops the thread: one
+    still loading when the interpreter exits can abort the process."""
 
     def __init__(self, it: Iterator, depth: int = 2):
         self.q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._done = object()
+        self._stop = threading.Event()
 
         def worker():
             try:
                 for item in it:
-                    self.q.put(item)
+                    if not self._put(item):
+                        return
             finally:
-                self.q.put(self._done)
+                self._put(self._done)
 
         self.thread = threading.Thread(target=worker, daemon=True)
         self.thread.start()
+
+    def _put(self, item) -> bool:
+        """Queue ``item``, waiting for room until ``close``; whether it was
+        queued."""
+        while not self._stop.is_set():
+            try:
+                self.q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def close(self) -> None:
+        """Stop the thread once the batch it is making is made, and wait
+        for it."""
+        self._stop.set()
+        self.thread.join()
 
     def __iter__(self):
         while True:

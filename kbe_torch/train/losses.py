@@ -12,7 +12,11 @@
   LOSS_WEIGHTS             the inpainting trainer's weights
   depth_loss_schedule      the depth trainer's (ord, grad, mask) schedule
 
-Tensors are NHWC, (B, H, W, 1) for disparities and masks.
+Tensors are NHWC, (B, H, W, 1) for disparities and masks. The losses that
+divide by a batch-wide count, or are not linear in the batch's sums, take a
+``mesh`` (``kbe_torch.parallel``): on a rank's local batch they then give
+the global batch's loss. Means over the batch need none: the data-parallel
+step averages them over the ranks. Without a mesh nothing changes.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch.nn.functional as F
 from kbe_torch.ops.image_ops import (gaussian_blur, gram_matrix,
                                      rgb_to_grayscale, sobel_magnitude,
                                      total_variation)
+from kbe_torch.parallel.dp import global_sum
 
 LOSS_WEIGHTS: Dict[str, float] = {
     "hole": 6.0,
@@ -82,56 +87,69 @@ def _masked(loss, n):
     return torch.where(n > 0, loss, torch.zeros_like(loss))
 
 
-def compute_loss_ord(disparity, target, mask, mode: str = "L1"):
-    """Masked ordinal loss."""
-    n = torch.sum(mask)
+def _sum(x, mesh):
+    """``torch.sum(x)``; with a mesh, summed over its ranks too: the global
+    batch's sum."""
+    return global_sum(torch.sum(x), mesh)
+
+
+def compute_loss_ord(disparity, target, mask, mode: str = "L1", mesh=None):
+    """Masked ordinal loss; with ``mesh`` over the global batch."""
+    n = _sum(mask, mesh)
     safe_n = torch.clamp(n, min=1.0)
     if mode == "L1":
-        loss = torch.sum(torch.abs(disparity * mask - target * mask)) / safe_n
+        loss = _sum(torch.abs(disparity * mask - target * mask), mesh) / safe_n
     elif mode == "rmse":
         ri = (disparity - target) * mask
-        loss = torch.sum(ri ** 2) / safe_n - (torch.sum(ri) / safe_n) ** 2
+        loss = (_sum(ri ** 2, mesh) / safe_n
+                - (_sum(ri, mesh) / safe_n) ** 2)
     elif mode == "logrmse":
         ri = (torch.log10(disparity * mask + 1e-7)
               - torch.log10(target * mask + 1e-7))
-        loss = (torch.sum(ri ** 2) / safe_n
-                - (0.5 * torch.sum(ri) / safe_n) ** 2)
+        loss = (_sum(ri ** 2, mesh) / safe_n
+                - (0.5 * _sum(ri, mesh) / safe_n) ** 2)
     else:
         raise ValueError(f"unknown ord mode {mode!r}")
     return _masked(loss, n)
 
 
-def compute_loss_grad(disparity, target, mask):
-    """Multi-scale masked MSE on normalised gradients (h = 1, 2, 4, 8)."""
-    n = torch.sum(mask)
+def compute_loss_grad(disparity, target, mask, mesh=None):
+    """Multi-scale masked MSE on normalised gradients (h = 1, 2, 4, 8); with
+    ``mesh`` over the global batch."""
+    n = _sum(mask, mesh)
     safe_n = torch.clamp(n, min=1.0)
     loss = torch.zeros((), dtype=disparity.dtype, device=disparity.device)
     for h in (1, 2, 4, 8):
         dv, dh = _derivative_scale(disparity, h, norm=True)
         tv_, th_ = _derivative_scale(target, h, norm=True)
-        loss = loss + torch.sum((dv * mask - tv_ * mask) ** 2) / safe_n
-        loss = loss + torch.sum((dh * mask - th_ * mask) ** 2) / safe_n
+        loss = loss + _sum((dv * mask - tv_ * mask) ** 2, mesh) / safe_n
+        loss = loss + _sum((dh * mask - th_ * mask) ** 2, mesh) / safe_n
     return _masked(loss, n)
 
 
-def compute_masked_grad_loss(disparity, masks, scales=(1,), kappa=0.5):
-    """Pull in-mask gradients toward ``kappa`` (the flat-objects prior)."""
-    n = torch.sum(masks)
+def compute_masked_grad_loss(disparity, masks, scales=(1,), kappa=0.5,
+                             mesh=None):
+    """Pull in-mask gradients toward ``kappa`` (the flat-objects prior);
+    with ``mesh`` over the global batch."""
+    n = _sum(masks, mesh)
     safe_n = torch.clamp(n, min=1.0)
     loss = torch.zeros((), dtype=disparity.dtype, device=disparity.device)
     for h in scales:
         dv, dh = _derivative_scale(disparity, h, norm=False)
-        loss = loss + torch.sum(torch.abs(dv * masks - kappa * masks)) / safe_n
-        loss = loss + torch.sum(torch.abs(dh * masks - kappa * masks)) / safe_n
+        loss = loss + _sum(torch.abs(dv * masks - kappa * masks),
+                           mesh) / safe_n
+        loss = loss + _sum(torch.abs(dh * masks - kappa * masks),
+                           mesh) / safe_n
     return _masked(loss, n)
 
 
-def joint_edge_loss(image, disparity, masks_extended):
-    """Fraction of in-mask image edges with no matching disparity edge."""
+def joint_edge_loss(image, disparity, masks_extended, mesh=None):
+    """Fraction of in-mask image edges with no matching disparity edge;
+    with ``mesh`` over the global batch."""
     edge_img = (sobel_magnitude(rgb_to_grayscale(image)) > 0.1).float()
     edge_disp = (sobel_magnitude(disparity) > 0.3).float()
-    return (torch.sum(edge_img * masks_extended * (1.0 - edge_disp))
-            / torch.clamp(torch.sum(masks_extended), min=1.0))
+    return (_sum(edge_img * masks_extended * (1.0 - edge_disp), mesh)
+            / torch.clamp(_sum(masks_extended, mesh), min=1.0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,9 +202,11 @@ def inpainting_loss(vgg_features: Optional[Callable], inp, mask, output, gt,
 
 
 def inpainting_loss_adv(inp, mask, output, disparity=None,
-                        disparity_gt=None) -> Dict[str, torch.Tensor]:
+                        disparity_gt=None, mesh=None
+                        ) -> Dict[str, torch.Tensor]:
     """Unsupervised (adversarial) pixel losses: valid L1, TV,
-    extended-mask flatness minus blurred edges, valid-depth L1."""
+    extended-mask flatness minus blurred edges (over the global batch with
+    ``mesh``), valid-depth L1."""
     out_comp = mask * inp + (1.0 - mask) * output
     loss = {
         "valid": torch.mean(torch.abs(mask * (output - inp))),
@@ -203,7 +223,7 @@ def inpainting_loss_adv(inp, mask, output, disparity=None,
         edge = (sobel_magnitude(rgb_to_grayscale(output)) > 0.1).float()
         extended_edges = (gaussian_blur(edge, 7, 1.0) > 0.0).float()
         loss["mask"] = compute_masked_grad_loss(
-            disparity, extended * (1.0 - extended_edges), (1,), 0.5)
+            disparity, extended * (1.0 - extended_edges), (1,), 0.5, mesh)
         if disparity_gt is not None:
             loss["valid_depth"] = torch.mean(
                 torch.abs(mask * (disparity - disparity_gt)))

@@ -17,7 +17,20 @@
 
 Validation every 500 iterations and once after the loop: the 7 depth
 metrics, at 256 pixels in disparity mode, at full resolution after the
-refinement. On the card TF32 is off, as in the inpainting trainer; two
+refinement.
+
+Data parallel (``mesh``, a ``kbe_torch.parallel.DataMesh``): ``train``
+takes each rank's part of the global batches and runs the disparity and
+refine steps through ``data_parallel_step``, as ``kbe_tpu`` shards exactly
+those: their losses reduce over the global batch (the instance-mask loss
+is summed over it), their gradients are averaged over the ranks before the
+clip, and a W-rank step is the 1-rank step on the joint batch. The 'other'
+step runs replicated on every rank over the whole auxiliary batch, as JAX
+runs it unsharded. The fresh states are broadcast from rank 0; validation
+runs on rank 0 alone while the others wait, and only rank 0 writes metrics
+and checkpoints.
+
+On the card TF32 is off, as in the inpainting trainer; two
 runs from one seed give equal bits under
 ``kbe_torch.device.deterministic_training``, which the training CLI turns
 on.
@@ -56,13 +69,19 @@ from kbe_torch.device import disable_tf32, resolve_device
 from kbe_torch.models import Disparity, Refine, Semantics
 from kbe_torch.models.init import apply_weights_init, flax_default_init
 from kbe_torch.ops.resize import resize_to_max
+from kbe_torch.parallel import (data_parallel_step, global_sum,
+                                mean_over_ranks, replicate)
 from kbe_torch.train.checkpoint import load_optimizer_state
 from kbe_torch.train.losses import (compute_loss_grad, compute_loss_ord,
                                     compute_masked_grad_loss,
                                     depth_loss_schedule)
 from kbe_torch.train.metrics import compute_depth_metrics
 from kbe_torch.utils.convert import load_flax
-from kbe_torch.utils.logging import MetricsWriter
+from kbe_torch.utils.logging import MetricsWriter, NullWriter
+
+# iterations between checkpoints and validations
+# (training/train_depth.py:121-126)
+VALIDATE_EVERY = 500
 
 
 def exp_decay_schedule(lr0: float, gamma: float) -> Callable:
@@ -137,12 +156,12 @@ class TrainState:
         self.step = int(saved["step"])
 
 
-def _grads(loss: torch.Tensor, params: List[nn.Parameter]):
+def _grads(loss: torch.Tensor, params: List[nn.Parameter], mesh=None):
     """d loss / d params; a parameter the loss does not reach gets zeros,
-    as ``jax.grad`` gives."""
+    as ``jax.grad`` gives. With a mesh, averaged over its ranks."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g
-            for p, g in zip(params, grads)]
+    return mean_over_ranks([torch.zeros_like(p) if g is None else g
+                            for p, g in zip(params, grads)], mesh)
 
 
 def _detached(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -162,13 +181,38 @@ def to_device(batch, device) -> Dict:
     return out
 
 
-def _masked_grad_sum(disp, instance_masks, kappa: float) -> torch.Tensor:
+def _masked_grad_sum(disp, instance_masks, kappa: float,
+                     mesh=None) -> torch.Tensor:
     """The instance-mask loss of each sample's disparity against its
-    (M, h, w, 1) masks, summed over the batch."""
-    return torch.sum(torch.stack([
+    (M, h, w, 1) masks, summed over the batch (the global batch with a
+    mesh)."""
+    return global_sum(torch.sum(torch.stack([
         compute_masked_grad_loss(disp[i:i + 1], instance_masks[i], (1,),
                                  kappa)
-        for i in range(disp.shape[0])]))
+        for i in range(disp.shape[0])])), mesh)
+
+
+def _is_chief(mesh) -> bool:
+    return mesh is None or mesh.is_chief
+
+
+def _writer(logs_path: str, mesh):
+    """Rank 0's metrics writer; the other ranks write nothing."""
+    return MetricsWriter(logs_path) if _is_chief(mesh) else NullWriter()
+
+
+def _parallel(step: Callable, mesh) -> Callable:
+    return step if mesh is None else data_parallel_step(step, mesh)
+
+
+def _on_chief(mesh, *fns: Callable) -> None:
+    """Call ``fns`` on rank 0 (a checkpoint, a validation); the other ranks
+    wait for it."""
+    if _is_chief(mesh):
+        for fn in fns:
+            fn()
+    if mesh is not None:
+        mesh.barrier()
 
 
 @dataclasses.dataclass
@@ -180,7 +224,8 @@ class TrainerDepth:
     the frozen ``Semantics``, a Flax-shaped tree, or None for fresh
     weights drawn as a Flax init from ``seed + 2``. ``seed`` seeds the
     fresh nets' draws; ``device`` defaults to ``cuda``, which raises where
-    there is none."""
+    there is none, or to the device of ``mesh`` (a
+    ``kbe_torch.parallel.DataMesh``: data-parallel training)."""
 
     hparams: Dict[str, Any]
     semantics_params: Any = None
@@ -191,10 +236,8 @@ class TrainerDepth:
     mesh: Any = None
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "data-parallel training needs the port of kbe_tpu/parallel "
-                "(ROADMAP.md Queue 1 item 2)")
+        if self.mesh is not None and self.device is None:
+            self.device = self.mesh.device
         self.device = resolve_device(self.device)
         if self.device.type == "cuda":
             disable_tf32()
@@ -215,7 +258,7 @@ class TrainerDepth:
         self.tx_refine: Optimizer = make_optimizer(
             self.hparams.get("lr_refine", 1e-6), gamma)
         self.tx_imagenet: Optimizer = make_optimizer(lr_d, gamma, clip=0.1)
-        self.writer = MetricsWriter(self.logs_path)
+        self.writer = _writer(self.logs_path, self.mesh)
         self.iter_nb = 0
 
     # ------------------------------------------------------------ states
@@ -229,7 +272,8 @@ class TrainerDepth:
             apply_weights_init(flax_default_init(net, g), g,
                                self.hparams.get("init", "xavier"))
         net = net.to(self.device)
-        return TrainState(net, tx.init(list(net.parameters())))
+        state = TrainState(net, tx.init(list(net.parameters())))
+        return state if self.mesh is None else replicate(self.mesh, state)
 
     def init_state(self, image_shape, mode: Optional[str] = None,
                    disparity_params: Any = None, refine_params: Any = None):
@@ -257,23 +301,27 @@ class TrainerDepth:
         disp = net(image, sem)
         return torch.maximum(disp, torch.zeros_like(disp))
 
-    def disparity_train_step(self, state: TrainState, batch: Dict):
+    def disparity_train_step(self, state: TrainState, batch: Dict,
+                             mesh=None):
         """One estimation step. ``batch``: image (B, H, W, 3) in [-1, 1],
         disparity and mask at half its size, optional instance_masks
-        (B, M, H/2, W/2, 1)."""
+        (B, M, H/2, W/2, 1). ``mesh``: the rank's part of a data-parallel
+        step (``data_parallel_step``)."""
         disp = self._disparity_forward(state.net, batch["image"])
         l_ord = compute_loss_ord(disp, batch["disparity"], batch["mask"],
-                                 mode="logrmse")
-        l_grad = compute_loss_grad(disp, batch["disparity"], batch["mask"])
+                                 mode="logrmse", mesh=mesh)
+        l_grad = compute_loss_grad(disp, batch["disparity"], batch["mask"],
+                                   mesh)
         g_ord, g_grad, g_mask = depth_loss_schedule(state.step)
         loss = g_ord * l_ord + g_grad * l_grad
         l_mask = torch.zeros((), device=disp.device)
         if "instance_masks" in batch:
-            l_mask = _masked_grad_sum(disp, batch["instance_masks"], 0.5)
+            l_mask = _masked_grad_sum(disp, batch["instance_masks"], 0.5,
+                                      mesh)
             loss = loss + g_mask * l_mask
         params = state.parameters()
         state.opt_state = self.tx_disparity.step(
-            params, _grads(loss, params), state.opt_state)
+            params, _grads(loss, params, mesh), state.opt_state)
         state.step += 1
         return state, _detached({"ord": l_ord, "grad": l_grad,
                                  "mask": l_mask, "total": loss})
@@ -290,21 +338,23 @@ class TrainerDepth:
         return state, {"mask": loss.detach()}
 
     def refine_train_step(self, dstate: TrainState, rstate: TrainState,
-                          batch: Dict):
+                          batch: Dict, mesh=None):
         """One refinement step: the frozen estimation at the resized image,
-        the refinement at full resolution."""
+        the refinement at full resolution. ``mesh``: the rank's part of a
+        data-parallel step."""
         with torch.no_grad():
             resized = resize_to_max(batch["image"],
                                     self.hparams.get("estimation_size", 512))
             disp_est = self._disparity_forward(dstate.net, resized)
         disp = rstate.net(batch["image"], disp_est)
         l_ord = compute_loss_ord(disp, batch["disparity"], batch["mask"],
-                                 mode="L1")
-        l_grad = compute_loss_grad(disp, batch["disparity"], batch["mask"])
+                                 mode="L1", mesh=mesh)
+        l_grad = compute_loss_grad(disp, batch["disparity"], batch["mask"],
+                                   mesh)
         loss = 0.0001 * l_ord + l_grad
         params = rstate.parameters()
         rstate.opt_state = self.tx_refine.step(
-            params, _grads(loss, params), rstate.opt_state)
+            params, _grads(loss, params, mesh), rstate.opt_state)
         rstate.step += 1
         return rstate, _detached({"ord": l_ord, "grad": l_grad,
                                   "total": loss})
@@ -349,25 +399,30 @@ class TrainerDepth:
               pretrained: Optional[Dict[str, Any]] = None,
               resume_state: Any = None, resume_step: int = 0):
         """The loop: every 500th iteration checkpoints and validates first,
-        and the end validates once more. ``pretrained``: optional
+        and the end validates once more (rank 0 alone, with a mesh; the
+        batches of ``train_iter`` are then the rank's local parts, those of
+        ``val_iter_factory()`` whole). ``pretrained``: optional
         {'disparity': tree, 'refine': tree} warm starts. ``resume_state``:
         a disparity ``TrainState``, or (disparity, refine) in refine mode,
         loaded from a checkpoint. Returns the state(s)."""
         pretrained = pretrained or {}
         self.iter_nb = resume_step
+        checkpoint_cb = checkpoint_cb or (lambda state, step: None)
         if self.mode == "disparity":
             state = resume_state if resume_state is not None else \
                 self.init_state(image_shape,
                                 disparity_params=pretrained.get("disparity"))
+            step = _parallel(self.disparity_train_step, self.mesh)
             for batch in train_iter:
                 if max_steps is not None and self.iter_nb >= max_steps:
                     break
-                if (self.iter_nb + 1) % 500 == 0:
-                    if checkpoint_cb:
-                        checkpoint_cb(state, self.iter_nb)
-                    self.validation(state, val_iter_factory())
+                if (self.iter_nb + 1) % VALIDATE_EVERY == 0:
+                    _on_chief(self.mesh,
+                              lambda: checkpoint_cb(state, self.iter_nb),
+                              lambda: self.validation(state,
+                                                      val_iter_factory()))
                 aux = batch.pop("imagenet", None)
-                state, metrics = self.disparity_train_step(
+                state, metrics = step(
                     state, to_device(batch, self.device))
                 self.writer.scalars({k: float(v) for k, v in metrics.items()},
                                     self.iter_nb, prefix="Estimation/")
@@ -378,7 +433,8 @@ class TrainerDepth:
                     self.writer.scalar("Estimation/mask_other",
                                        float(m2["mask"]), self.iter_nb)
                 self.iter_nb += 1
-            self.validation(state, val_iter_factory())
+            _on_chief(self.mesh, lambda: self.validation(
+                state, val_iter_factory()))
             self.writer.flush()
             return state
 
@@ -389,19 +445,22 @@ class TrainerDepth:
                 image_shape, self.mode,
                 disparity_params=pretrained.get("disparity"),
                 refine_params=pretrained.get("refine"))
+        step = _parallel(self.refine_train_step, self.mesh)
         for batch in train_iter:
             if max_steps is not None and self.iter_nb >= max_steps:
                 break
-            if (self.iter_nb + 1) % 500 == 0:
-                if checkpoint_cb:
-                    checkpoint_cb(rstate, self.iter_nb)
-                self.validation(dstate, val_iter_factory(), rstate)
+            if (self.iter_nb + 1) % VALIDATE_EVERY == 0:
+                _on_chief(self.mesh,
+                          lambda: checkpoint_cb(rstate, self.iter_nb),
+                          lambda: self.validation(dstate, val_iter_factory(),
+                                                  rstate))
             batch.pop("imagenet", None)
-            rstate, metrics = self.refine_train_step(
+            rstate, metrics = step(
                 dstate, rstate, to_device(batch, self.device))
             self.writer.scalars({k: float(v) for k, v in metrics.items()},
                                 self.iter_nb, prefix="Refine/")
             self.iter_nb += 1
-        self.validation(dstate, val_iter_factory(), rstate)
+        _on_chief(self.mesh, lambda: self.validation(
+            dstate, val_iter_factory(), rstate))
         self.writer.flush()
         return dstate, rstate

@@ -18,6 +18,16 @@ Every 500th iteration of ``train`` checkpoints and validates first: the
 supervised trainer reports PSNR and SSIM, the adversarial one the FID of
 its inpainted B views against the real A views (``validation_adv``).
 
+Data parallel (``mesh``, a ``kbe_torch.parallel.DataMesh``): ``train``
+takes each rank's part of the global batches and runs the supervised and
+adversarial steps through ``data_parallel_step``, as ``kbe_tpu`` shards
+exactly those: the batch-wide counts of the losses and the discriminator's
+batch statistics are the global batch's, the gradients of G and of D are
+averaged over the ranks before each clip, and a W-rank step is the 1-rank
+step on the joint batch. The fresh states are broadcast from rank 0;
+validation and ``validation_adv`` run on rank 0 alone while the others
+wait, and only rank 0 writes metrics and checkpoints.
+
 Each step takes gradients with ``torch.autograd.grad`` with respect to the
 parameters it updates, so G's loss leaves nothing in D's parameters, and D
 is trained on the fakes of the G that made the G loss (before its update).
@@ -51,11 +61,17 @@ from kbe_torch.train.losses import (compute_loss_grad, compute_loss_ord,
                                     inpainting_loss, inpainting_loss_adv,
                                     weighted_total)
 from kbe_torch.train.metrics import compute_inpaint_metrics
+from kbe_torch.parallel import replicate
 from kbe_torch.train.trainer_depth import (Optimizer, _detached, _grads,
-                                           make_optimizer, to_device)
+                                           _on_chief, _parallel,
+                                           _writer, make_optimizer,
+                                           to_device)
 from kbe_torch.train.view_synthesis import masks_a_from_b, render_view_b
 from kbe_torch.utils.convert import load_flax
-from kbe_torch.utils.logging import MetricsWriter
+
+# iterations between checkpoints and validations
+# (training/train_inpaint.py:332-418)
+VALIDATE_EVERY = 500
 
 # the reference's training camera
 TRAIN_CAMERA = CameraConfig(focal=512.0, baseline=74.0)
@@ -119,7 +135,9 @@ class TrainerInpaint:
     seed). ``vgg``: the frozen
     ``VGG16Features`` of the supervised perceptual and style losses, or
     None (those terms are left out). ``seed`` seeds the fresh nets' draws;
-    ``device`` defaults to ``cuda``, which raises where there is none."""
+    ``device`` defaults to ``cuda``, which raises where there is none, or
+    to the device of ``mesh`` (a ``kbe_torch.parallel.DataMesh``:
+    data-parallel training)."""
 
     hparams: Dict[str, Any]
     vgg: Optional[VGG16Features] = None
@@ -135,10 +153,8 @@ class TrainerInpaint:
     stop_g: int = 10000
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "data-parallel training needs the port of kbe_tpu/parallel "
-                "(ROADMAP.md Queue 1 item 2)")
+        if self.mesh is not None and self.device is None:
+            self.device = self.mesh.device
         self.device = resolve_device(self.device)
         if self.device.type == "cuda":
             disable_tf32()
@@ -156,7 +172,7 @@ class TrainerInpaint:
         self.tx_d: Optimizer = make_optimizer(
             self.hparams.get("lr_D", 1e-4),
             self.hparams.get("gamma_lr", 0.99997))
-        self.writer = MetricsWriter(self.logs_path)
+        self.writer = _writer(self.logs_path, self.mesh)
         self.iter_nb = 0
         self._fid = None
 
@@ -181,7 +197,7 @@ class TrainerInpaint:
         context, net = context.to(self.device), net.to(self.device)
         state = InpaintState(context, net, None)
         state.opt_state = self.tx.init(state.parameters())
-        return state
+        return state if self.mesh is None else replicate(self.mesh, state)
 
     def init_disc_state(self, image_shape) -> DiscState:
         """A fresh ``MPDDiscriminator`` with spectral norm, drawn as a
@@ -193,7 +209,7 @@ class TrainerInpaint:
         disc.core.vgg.requires_grad_(False)
         state = DiscState(disc, None)
         state.opt_state = self.tx_d.init(state.parameters())
-        return state
+        return state if self.mesh is None else replicate(self.mesh, state)
 
     # ----------------------------------------------------------- shared
 
@@ -215,9 +231,10 @@ class TrainerInpaint:
 
     # -------------------------------------------------- supervised step
 
-    def supervised_step(self, state: InpaintState, batch: Dict):
+    def supervised_step(self, state: InpaintState, batch: Dict, mesh=None):
         """``batch``: image (B, H, W, 3) in [-1, 1], disparity, depth and
-        the zoom windows, as tensors on the trainer's device."""
+        the zoom windows, as tensors on the trainer's device. ``mesh``: the
+        rank's part of a data-parallel step (``data_parallel_step``)."""
         with torch.no_grad():
             masks, _ = masks_a_from_b(batch["image"], batch["disparity"],
                                       batch["depth"], batch["zoom"],
@@ -227,12 +244,14 @@ class TrainerInpaint:
                                           batch["disparity"], masks)
         loss = inpainting_loss(self.vgg, image01 * masks, masks, out_img,
                                image01)
-        loss["ord"] = compute_loss_ord(out_disp, batch["disparity"], masks)
-        loss["grad"] = compute_loss_grad(out_disp, batch["disparity"], masks)
+        loss["ord"] = compute_loss_ord(out_disp, batch["disparity"], masks,
+                                       mesh=mesh)
+        loss["grad"] = compute_loss_grad(out_disp, batch["disparity"], masks,
+                                         mesh)
         loss["total"] = weighted_total(loss)
         params = state.parameters()
-        state.opt_state = self.tx.step(params, _grads(loss["total"], params),
-                                       state.opt_state)
+        state.opt_state = self.tx.step(
+            params, _grads(loss["total"], params, mesh), state.opt_state)
         state.step += 1
         return state, _detached(loss)
 
@@ -263,8 +282,9 @@ class TrainerInpaint:
         }
 
     def adversarial_step(self, g_state: InpaintState, d_state: DiscState,
-                         batch: Dict, do_g_update: bool):
-        """One GAN iteration; returns (g_state, d_state, metrics)."""
+                         batch: Dict, do_g_update: bool, mesh=None):
+        """One GAN iteration; returns (g_state, d_state, metrics). ``mesh``:
+        the rank's part of a data-parallel step."""
         metrics = {}
         if do_g_update:
             out = self._adv_forward(g_state.context, g_state.net, batch)
@@ -273,12 +293,13 @@ class TrainerInpaint:
             loss_adv = adversarial_loss(preds, is_real=True)
             loss = inpainting_loss_adv(out["image_b"], out["mask_b"],
                                        out["inpaint_img"],
-                                       out["inpaint_disp"], out["disp_b"])
+                                       out["inpaint_disp"], out["disp_b"],
+                                       mesh=mesh)
             total = 10.0 * weighted_total(loss) + loss_adv
             loss.update(total_g=total, adv_g=loss_adv)
             params = g_state.parameters()
-            g_state.opt_state = self.tx.step(params, _grads(total, params),
-                                             g_state.opt_state)
+            g_state.opt_state = self.tx.step(
+                params, _grads(total, params, mesh), g_state.opt_state)
             g_state.step += 1
             metrics.update(_detached(loss))
         else:
@@ -287,13 +308,14 @@ class TrainerInpaint:
         fake_img = out["inpaint_img"].detach()
         fake_disp = out["inpaint_disp"].detach()
         disc = d_state.disc
-        fake_preds = disc(fake_img, fake_disp, train=True)
-        real_preds = disc(out["image_a"], out["disp_a"], train=True)
+        fake_preds = disc(fake_img, fake_disp, train=True, mesh=mesh)
+        real_preds = disc(out["image_a"], out["disp_a"], train=True,
+                          mesh=mesh)
         d_loss = 0.5 * (adversarial_loss(fake_preds, False)
                         + adversarial_loss(real_preds, True))
         params = d_state.parameters()
-        d_state.opt_state = self.tx_d.step(params, _grads(d_loss, params),
-                                           d_state.opt_state)
+        d_state.opt_state = self.tx_d.step(
+            params, _grads(d_loss, params, mesh), d_state.opt_state)
         d_state.step += 1
         metrics["loss_d"] = d_loss.detach()
         return g_state, d_state, metrics
@@ -360,7 +382,9 @@ class TrainerInpaint:
               checkpoint_cb: Optional[Callable] = None,
               pretrained_params: Any = None, resume_state: Any = None,
               resume_step: int = 0):
-        """The loop: every 500th iteration checkpoints and validates first.
+        """The loop: every 500th iteration checkpoints and validates first
+        (rank 0 alone, with a mesh; the batches of ``train_iter`` are then
+        the rank's local parts, those of ``val_iter_factory()`` whole).
         ``resume_state``: an ``InpaintState``, or (``InpaintState``,
         ``DiscState``) when adversarial, loaded from a checkpoint."""
         self.iter_nb = resume_step
@@ -376,22 +400,23 @@ class TrainerInpaint:
             state = (resume_state if resume_state is not None
                      else self.init_state(image_shape, pretrained_params))
             ckpt = state
+        checkpoint_cb = checkpoint_cb or (lambda state, step: None)
+        validate = self.validation_adv if adversarial else self.validation
+        adversarial_step = _parallel(self.adversarial_step, self.mesh)
+        supervised_step = _parallel(self.supervised_step, self.mesh)
         for batch in train_iter:
             if max_steps is not None and self.iter_nb >= max_steps:
                 break
-            if (self.iter_nb + 1) % 500 == 0:
-                if checkpoint_cb:
-                    checkpoint_cb(ckpt, self.iter_nb)
-                if adversarial:
-                    self.validation_adv(state, val_iter_factory())
-                else:
-                    self.validation(state, val_iter_factory())
+            if (self.iter_nb + 1) % VALIDATE_EVERY == 0:
+                _on_chief(self.mesh,
+                          lambda: checkpoint_cb(ckpt, self.iter_nb),
+                          lambda: validate(state, val_iter_factory()))
             batch = to_device(batch, self.device)
             if adversarial:
-                state, d_state, metrics = self.adversarial_step(
+                state, d_state, metrics = adversarial_step(
                     state, d_state, batch, self._want_g_update())
             else:
-                state, metrics = self.supervised_step(state, batch)
+                state, metrics = supervised_step(state, batch)
             self.writer.scalars({k: float(v) for k, v in metrics.items()},
                                 self.iter_nb, prefix="Inpaint/")
             self.iter_nb += 1

@@ -84,6 +84,27 @@ class MetricsWriter:
         self._jsonl.close()
 
 
+class NullWriter:
+    """A ``MetricsWriter`` that writes nothing: a data-parallel trainer's
+    writer on every rank but rank 0."""
+
+    def scalar(self, tag: str, value, step: int) -> None:
+        pass
+
+    def scalars(self, values: Dict[str, float], step: int,
+                prefix: str = "") -> None:
+        pass
+
+    def hparams(self, params: Dict) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class StageTimer:
     """Wall-clock seconds per named stage."""
 

@@ -537,3 +537,59 @@ def test_maskrcnn_on_the_card_matches_the_cpu(cuda):
     agree = ((got["masks"].cpu() > 0.5) == (want["masks"] > 0.5)).float()
     assert float(agree.mean()) >= 0.999
     assert int((want["scores"] > 0.5).sum()) >= 1
+
+
+def test_one_nccl_rank_step_is_the_step_without_a_mesh(cuda, deterministic,
+                                                       tmp_path):
+    """A 1-rank NCCL process group: the supervised step (48x64, batch 2)
+    and the adversarial G+D iteration (288^2, batch 2; the discriminator's
+    batch norms through the mesh) through ``data_parallel_step`` give the
+    losses and states of the steps without a mesh, bit for bit (narrow
+    grid-nets)."""
+    import socket
+
+    import torch.distributed as dist
+    from kbe_torch.config import CameraConfig
+    from kbe_torch.parallel import (data_mesh, data_parallel_step,
+                                    initialize_multihost)
+    from kbe_torch.train.data import synthetic_batches
+    from kbe_torch.train.trainer_inpaint import TrainerInpaint, to_device
+
+    def run(mesh, i):
+        out = []
+        for adversarial, (h, w), cam in (
+                (False, (48, 64), CameraConfig(64.0, 30.0)),
+                (True, (288, 288), CameraConfig(256.0, 60.0))):
+            trainer = TrainerInpaint(
+                {"adversarial": adversarial, "inpaint_rows": (8, 16)},
+                camera=cam, device=cuda, logs_path=str(tmp_path / f"{i}"))
+            step = (trainer.adversarial_step if adversarial
+                    else trainer.supervised_step)
+            if mesh is not None:
+                step = data_parallel_step(step, mesh)
+            states = [trainer.init_state((h, w))]
+            if adversarial:
+                states.append(trainer.init_disc_state((h, w)))
+            batch = to_device(next(synthetic_batches(
+                2, h, w, mode="inpainting", camera=cam, seed=4)), cuda)
+            *states, m = step(*states, batch,
+                              *((True,) if adversarial else ()))
+            out.append({k: float(v) for k, v in m.items()})
+            mods = [getattr(st, k) for st in states
+                    for k in ("context", "net", "disc") if hasattr(st, k)]
+            out += [t.clone() for mod in mods
+                    for t in mod.state_dict().values()]
+        return out
+
+    want = run(None, 0)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert initialize_multihost(f"127.0.0.1:{port}", 1, 0, device=cuda)
+    try:
+        got = run(data_mesh(1, device=cuda), 1)
+    finally:
+        dist.destroy_process_group()
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        assert x == y if isinstance(y, dict) else torch.equal(x, y)

@@ -32,13 +32,18 @@ def test_port_imports_no_jax_and_no_kbe_tpu():
             "kbe_torch.train.trainer_inpaint, kbe_torch.models.inception, "
             "kbe_torch.train.fid, kbe_torch.train.eval_inpaint, "
             "kbe_torch.train.eval_depth, kbe_torch.models.maskrcnn, "
-            "kbe_torch.ops.nms\n"
+            "kbe_torch.ops.nms, kbe_torch.parallel, "
+            "kbe_torch.utils.receptive_field\n"
             "import cli.kbe_torch, cli.train_torch\n"
+            "import runpy\n"
+            "for ex in ('depth_estimation_torch', 'inpainting_torch'):\n"
+            "    runpy.run_path(f'examples/{ex}.py', run_name='ex')\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'kbe_tpu'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True)
+                         text=True, cwd=os.path.dirname(os.path.dirname(
+                             os.path.abspath(__file__))))
     assert out.returncode == 0, out.stdout + out.stderr
 
 

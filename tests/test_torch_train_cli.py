@@ -5,8 +5,9 @@ writes its checkpoint, and resumes from it with ``--continue-training``
 ``--dataset`` with the Mask R-CNN's masks (a synthetic torchvision-layout
 ``.pth``; a 64^2 canvas), exits without ``--maskrcnn-weights`` as
 ``cli/train.py`` does, and leaves ``--synthetic`` the generator's masks.
-``--data-parallel`` raises in every mode, and the default device raises
-where there is no GPU.
+``--data-parallel`` refuses a global batch that does not divide over the
+ranks (its runs on two ranks are in ``tests/test_torch_parallel.py``), and
+the default device raises where there is no GPU.
 
 The depth modes' sizes follow their resizes: estimation validates at 256
 pixels from an estimation at ``estimation_size`` 512, half of it, so the
@@ -141,8 +142,16 @@ def test_cli_refinement_checkpoints_and_resumes(tmp_path, monkeypatch):
     ["--training-mode", "refinement", "--data-parallel"],
     ["--training-mode", "inpainting", "--data-parallel"],
 ], ids=["refinement", "data_parallel"])
-def test_later_slices_raise(argv, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_later_slices_raise(argv, tmp_path, monkeypatch):
+    """``--data-parallel`` in every mode: the global ``--batch-size`` of 8
+    does not divide over three ranks, and the run stops, saying so, before
+    a trainer is made."""
+    from kbe_torch import parallel
+
+    monkeypatch.setattr(parallel, "data_mesh", lambda device=None:
+                        parallel.DataMesh(0, 3, torch.device("cpu")))
+    monkeypatch.setattr(T, "make_trainer", None)  # never called
+    with pytest.raises(SystemExit, match="divide by the 3 ranks"):
         T.main(argv + ["--device", "cpu", "--logs-path",
                        str(tmp_path / "runs")])
 

@@ -40,6 +40,7 @@ from kbe_torch.utils.convert import state_dict_from_flax
 from tests.test_torch_models import random_params
 from kbe_torch.models import Refine
 from kbe_torch.ops.resize import resize_to_max
+from kbe_torch.parallel import data_mesh
 from kbe_torch.train.losses import compute_loss_grad, compute_loss_ord
 from kbe_torch.utils.convert import load_flax
 from tests.test_torch_train import (_capture_jax, _CaptureTorch,
@@ -227,7 +228,8 @@ def _validation_match(want, got):
 
 def test_fresh_state_follows_the_init_selector(tmp_path):
     """Fresh nets: a Flax init, then xavier (gain 1.4) on every conv
-    weight, the same from one seed; a mesh raises."""
+    weight, the same from one seed; a 1-rank mesh (``data_mesh`` with no
+    process group) gives the same state on its device."""
     tt = TDT.TrainerDepth({"disparity_rows": ROWS}, device="cpu",
                           logs_path=str(tmp_path / "a"))
     a = tt.init_state((H, W))
@@ -239,6 +241,10 @@ def test_fresh_state_follows_the_init_selector(tmp_path):
     want = 1.4 * np.sqrt(2.0 / (fan_in + fan_out))
     assert abs(float(w.detach().std()) - want) / want < 0.1
     assert a.opt_state["count"] == 0 and a.step == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TDT.TrainerDepth({}, device="cpu", mesh=object(),
-                         logs_path=str(tmp_path / "b"))
+    tm = TDT.TrainerDepth({"disparity_rows": ROWS},
+                          mesh=data_mesh(device="cpu"),
+                          logs_path=str(tmp_path / "b"))
+    assert tm.device == torch.device("cpu")
+    for p, q in zip(a.net.parameters(), tm.init_state((H, W)).net
+                    .parameters()):
+        assert torch.equal(p, q)
