@@ -55,8 +55,10 @@ Phases, in order; any failure raises and the script exits non-zero:
          final states must be bit-equal, then one with the mode off, cuDNN
          free to pick its algorithms (the step times give the cost of
          determinism); ``splat_grad`` against ``splat_grad_plain`` and the
-         CPU's autograd on the step's own cloud (C=68) and on a masked C=4
-         cloud, and its row;
+         CPU's autograd on the step's own cloud (C=68), on a masked C=4
+         cloud and on the step's cloud with edge gradients (zeros,
+         subnormals, values whose quotient overflows; and a fifth of the
+         weight sums zeroed), and its row;
      (u) depth training at full width through the same CLI's trainer and
          data: 3 estimation steps at 384x512, batch 8, with the 'same'
          mask loss and one with 'other' added (full Semantics and
@@ -76,9 +78,9 @@ Phases, in order; any failure raises and the script exits non-zero:
          ``.pth`` (seeded, full width) loaded through
          ``cli/train_torch.py``'s ``resolve_mask_source`` (512^2 canvas);
          kernel ``nms`` bit-equal to its plain loop on the card, on a real
-         forward's five RPN sets and its box set and on tie, zero-slot and
-         full-overlap sets, and its two rows; the forward on the card
-         against the CPU on a 512^2 noise image (FPN features 1e-4
+         forward's five RPN sets and its box set and on tie, zero-slot,
+         full-overlap and 1000-slot sets, and its two rows; the forward on
+         the card against the CPU on a 512^2 noise image (FPN features 1e-4
          relative, equal labels, boxes within 1e-2 px, masks equal on
          99.9 %; a synthetic item's canvas reported beside it); a forward
          and the source per item timed; 3 'same' estimation steps and one
@@ -314,11 +316,15 @@ def march_steps(depth, steps: int, roi) -> int:
     return total
 
 
-def assert_equal(name, got, want):
-    """Bit equality; ``want`` may live on the CPU."""
+def assert_equal(name, got, want, nan: bool = False):
+    """Bit equality; ``want`` may live on the CPU. With ``nan``, NaN where
+    ``want`` has NaN, and equal values elsewhere."""
     import torch
 
     got = got.to(want.device)
+    if nan and torch.equal(got.isnan(), want.isnan()):
+        got = torch.where(got.isnan(), 0.0, got)
+        want = torch.where(want.isnan(), 0.0, want)
     if not torch.equal(got, want):
         raise AssertionError(f"{name}: not bit-equal, max abs diff "
                              f"{max_err(got, want)} in "
@@ -1243,17 +1249,44 @@ class TrainRun:
 
     def __init__(self):
         self.losses, self.times, self.states = [], [], []
+        self.upstreams = []
 
     def record(self, kind, ms, losses):
         self.times.append((kind, ms))
         self.losses.append((kind, losses))
 
 
+class RecordUpstreams:
+    """While on, every ``splat_grad`` call appends its points and its
+    upstream gradient (the G loss's gradient with respect to the render)
+    to ``calls``, then runs as before."""
+
+    def __init__(self, calls: list, on: bool = True):
+        self.calls, self.on = calls, on
+
+    def __enter__(self):
+        from kbe_torch.ops import splat as S
+
+        self.inner = S.splat_grad
+        if self.on:
+            def spy(xyz, valid, pose, zee, existing, grad, h, w):
+                self.calls.append((xyz, grad))
+                return self.inner(xyz, valid, pose, zee, existing, grad, h,
+                                  w)
+            S.splat_grad = spy
+
+    def __exit__(self, *exc):
+        from kbe_torch.ops import splat as S
+
+        S.splat_grad = self.inner
+
+
 def _train_once(size, device: str, deterministic: bool, logs: str,
-                quiet: bool = False) -> TrainRun:
+                quiet: bool = False, record: bool = False) -> TrainRun:
     """Three supervised steps, then three adversarial iterations with
     ``pretrain_steps=0`` and ``balance_steps=1`` (one D-only, two G+D),
-    from the CLI's seeds and data."""
+    from the CLI's seeds and data. ``record``: keep the last iteration's
+    ``splat_grad`` calls (``RecordUpstreams``) in ``upstreams``."""
     from cli import train_torch as cli
     from kbe_torch.train.trainer_inpaint import TRAIN_CAMERA, to_device
 
@@ -1302,10 +1335,11 @@ def _train_once(size, device: str, deterministic: bool, logs: str,
         if do_g:
             want[GRAD_KEY] = b
         label = f"(t) {kind} iteration {i}"
-        (g_state, d_state, metrics), ms, (g_moved, d_moved) = _step(
-            label, lambda: trainer.adversarial_step(g_state, d_state, batch,
-                                                    do_g),
-            [g_state, d_state], device, want)
+        with RecordUpstreams(run.upstreams, record and i == 2):
+            (g_state, d_state, metrics), ms, (g_moved, d_moved) = _step(
+                label, lambda: trainer.adversarial_step(g_state, d_state,
+                                                        batch, do_g),
+                [g_state, d_state], device, want)
         counts = launch_counts()
         if do_g:
             for k, v in counts.items():
@@ -1386,9 +1420,10 @@ def training_phase(rows, size=TRAIN_SIZE, device: str = "cuda"):
     import torch
 
     with tempfile.TemporaryDirectory() as logs:
-        first = _train_once(size, device, True, logs + "/det1")
+        first = _train_once(size, device, True, logs + "/det1", record=True)
         second = _train_once(size, device, True, logs + "/det2", quiet=True)
         assert_runs_equal("(t) training", first, second)
+        upstreams = first.upstreams
         del first
         free = _train_once(size, device, False, logs + "/free")
         log(f"(t) ms a step, deterministic (second run): "
@@ -1398,11 +1433,24 @@ def training_phase(rows, size=TRAIN_SIZE, device: str = "cuda"):
         if device == "cuda":
             torch.cuda.empty_cache()
         grad_phase(rows, second.trainer, second.g_state, second.batch,
-                   second.gd_counts, device)
+                   second.gd_counts, device, upstreams)
     return second
 
 
 GRAD_KEY = "grad/c68"
+
+
+def step_points(batch, camera):
+    """Item 0's points of ``render_view_b`` in the adversarial step: the
+    pixel grid's valid points, shifted by the full step's camera move."""
+    import torch
+    from kbe_torch.train import view_synthesis as V
+
+    with torch.no_grad():
+        shift = V.batch_full_shift(batch["zoom"], batch["depth"], camera)
+        pts = V._valid_points(batch["disparity"], batch["depth"], camera,
+                              0.03)
+        return (pts + shift[:, None, :])[0].contiguous()
 
 
 def _step_cloud(trainer, g_state, batch):
@@ -1410,19 +1458,31 @@ def _step_cloud(trainer, g_state, batch):
     shifted points and the normalised image, disparity and context."""
     import torch
     from kbe_torch.models.layers import normalize_sample
-    from kbe_torch.train import view_synthesis as V
 
     with torch.no_grad():
         img_n, _ = normalize_sample((batch["image"] + 1.0) / 2.0)
         disp_n, _ = normalize_sample(batch["disparity"])
         ctx = g_state.context(img_n, disp_n)
-        shift = V.batch_full_shift(batch["zoom"], batch["depth"],
-                                   trainer.camera)
-        pts = V._valid_points(batch["disparity"], batch["depth"],
-                              trainer.camera, 0.03)
-        xyz = (pts + shift[:, None, :])[0].contiguous()
+        xyz = step_points(batch, trainer.camera)
         payload = torch.cat([img_n, disp_n, ctx], dim=-1)[0]
     return xyz, payload.reshape(xyz.shape[0], -1).contiguous()
+
+
+def edge_upstream(shape, seed: int):
+    """An upstream gradient of edge values in random places and signs:
+    zeros of both signs, subnormals, the bounds of ``splat_grad``'s
+    multiply-and-FMA quotient (2^-60, 2^60) and their outer neighbours,
+    values whose quotient overflows, ordinary ones."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    edges = torch.tensor([0.0, -0.0, 1e-45, 1e-40, 1.1754942e-38,
+                          2.0 ** -60, 2.0 ** 60, 3e38, 1e30, 0.37])
+    edges = torch.cat([edges, torch.nextafter(edges[5:7], torch.tensor(
+        [0.0, float("inf")]))])
+    pick = torch.randint(0, len(edges), shape, generator=g)
+    sign = torch.randint(0, 2, shape, generator=g) * 2.0 - 1.0
+    return edges[pick] * sign
 
 
 def _masked_cloud(h: int, w: int, device: str):
@@ -1439,39 +1499,83 @@ def _masked_cloud(h: int, w: int, device: str):
     return xyz.to(device), payload.to(device), valid.to(device)
 
 
-def grad_check(label, xyz, payload, valid, pose, h: int, w: int):
+def grad_check(label, xyz, payload, valid, pose, h: int, w: int,
+               upstream=None):
     """``splat_grad`` against ``splat_grad_plain`` on the card and the CPU's
     autograd of the plain render (``accumulate_plain``'s ``index_add_``):
-    bit-equal. Returns the saved forward and the upstream gradient."""
+    bit-equal (NaN where they have NaN, for an edge ``upstream``). Returns
+    the saved forward and the upstream gradient."""
     import torch
     from kbe_torch.ops import splat as S
 
     c = payload.shape[1]
-    g = torch.Generator().manual_seed(c)
-    upstream = torch.rand(h * w, c, generator=g).to(xyz.device)
+    edge = upstream is not None
+    if not edge:
+        g = torch.Generator().manual_seed(c)
+        upstream = torch.rand(h * w, c, generator=g)
+    upstream = upstream.reshape(h * w, c).to(xyz.device)
     _, existing, zee = S._render(xyz, payload, valid, pose, h, w)
     existing = existing.contiguous()
     # the kernel on CUDA tensors (the plain gather in a CPU rehearsal)
     got = S.splat_grad(xyz, valid, pose, zee, existing, upstream, h, w)
     assert_equal(f"{label} splat_grad vs plain", got,
                  S.splat_grad_plain(xyz, valid, pose, zee, existing,
-                                    upstream, h, w))
-    cpu = payload.cpu().requires_grad_(True)
+                                    upstream, h, w), nan=edge)
+    cpu = payload.detach().cpu().clone().requires_grad_(True)
     rendered, _ = S.splat(xyz.cpu(), cpu, None if valid is None
                           else valid.cpu(), pose.cpu(), h, w)
     (rendered.reshape(-1, c) * upstream.cpu()).sum().backward()
-    assert_equal(f"{label} splat_grad vs CPU autograd", got, cpu.grad)
+    assert_equal(f"{label} splat_grad vs CPU autograd", got, cpu.grad,
+                 nan=edge)
     live = int((got != 0).any(dim=1).sum())
+    if edge:
+        # and a fifth of the weight sums zeroed: d = 1e-7 there
+        g = torch.Generator().manual_seed(c + 1)
+        empty = existing.clone().reshape(-1)
+        empty[(torch.rand(h * w, generator=g) < 0.2).to(xyz.device)] = 0.0
+        got = S.splat_grad(xyz, valid, pose, zee, empty, upstream, h, w)
+        assert_equal(f"{label} splat_grad vs plain, empty pixels", got,
+                     S.splat_grad_plain(xyz, valid, pose, zee, empty,
+                                        upstream, h, w), nan=True)
+        if not bool(got.isinf().any()):
+            raise AssertionError(f"{label}: no quotient overflowed")
+    also = " (and to the plain version with a fifth of W zeroed)"
     log(f"{label}: N={xyz.shape[0]} C={c} "
         f"{'a mask' if valid is not None else 'no mask'}: splat_grad "
-        f"bit-equal to splat_grad_plain and to the CPU's autograd; {live} "
-        f"points get a gradient")
+        f"bit-equal to splat_grad_plain and to the CPU's autograd"
+        f"{also if edge else ''}; {live} points get a gradient")
     return existing, zee, upstream
 
 
-def grad_phase(rows, trainer, g_state, batch, gd_counts, device):
-    """splat_grad on the step's own cloud (C=68, no mask) and on a masked
-    C=4 cloud, then timed on the step's cloud; its row."""
+def route_shares(upstream, counts, c: int):
+    """The shares of ``splat_grad``'s (visible corner, group of four
+    channels) pairs, over the visible corners ``counts`` (H*W,) a pixel:
+    those whose upstream group holds a value off the multiply-and-FMA
+    quotient's route (a |g| outside [2^-60, 2^60], 0 included), so that
+    the group takes the IEEE division, and those whose group holds an
+    exact zero. Returns (off route, with a zero)."""
+    import torch
+
+    groups = -(-c // 4)
+    a = torch.ones(upstream.shape[0], groups * 4, device=upstream.device)
+    a[:, :c] = upstream.abs()
+    a = a.reshape(-1, groups, 4)
+    off = (~((a >= 2.0 ** -60) & (a <= 2.0 ** 60))).any(-1)
+    zero = (a == 0).any(-1)
+    n = counts.double()
+    total = float(n.sum()) * groups
+    return (float((off.sum(1).double() * n).sum()) / total,
+            float((zero.sum(1).double() * n).sum()) / total)
+
+
+def grad_phase(rows, trainer, g_state, batch, gd_counts, device,
+               upstreams=()):
+    """splat_grad on the step's own cloud (C=68, no mask), on a masked
+    C=4 cloud and on the step's cloud with edge gradients, then timed on
+    the step's cloud; its row. ``upstreams``: the (points, upstream
+    gradient) of the last G+D iteration's ``splat_grad`` calls, whose item
+    0 (the step's cloud) gives the real gradient's route shares and a
+    second time."""
     import torch
     from kbe_torch.ops import splat as S
 
@@ -1483,6 +1587,8 @@ def grad_phase(rows, trainer, g_state, batch, gd_counts, device):
                                          None, pose, h, w)
     m_xyz, m_payload, m_valid = _masked_cloud(h, w, device)
     grad_check("(t) masked cloud", m_xyz, m_payload, m_valid, pose, h, w)
+    grad_check("(t) step cloud, edge gradients", xyz, payload, None, pose, h,
+               w, upstream=edge_upstream((h * w, payload.shape[1]), 7))
     if device != "cuda":
         return
 
@@ -1497,6 +1603,20 @@ def grad_phase(rows, trainer, g_state, batch, gd_counts, device):
     n, c = payload.shape
     counts = S.count_cuda(xyz, None, pose, zee, h, w, c)
     entries = int(counts.sum())
+    real = next((g for x, g in upstreams if torch.equal(x, xyz)), None)
+    if real is None:
+        raise AssertionError("(t): no splat_grad call of the last G+D "
+                             "iteration had item 0's points")
+    real = real.reshape(h * w, c).contiguous()
+
+    def fn_real():
+        return S.grad_cuda(xyz, None, pose, zee, existing, real, h, w)
+
+    assert_equal("(t) splat_grad vs plain, the G step's own upstream",
+                 fn_real(), S.splat_grad_plain(xyz, None, pose, zee,
+                                               existing, real, h, w))
+    off, zero = route_shares(real, counts, c)
+    real_dev = device_ms(fn_real, reps, ("splat_grad",))
     # bytes: the upstream gradient, the weight sums, the degridded buffer
     # and the points read once, the payload's gradient written once;
     # operations: a projection a point (~20) and a divide, multiply and
@@ -1506,6 +1626,9 @@ def grad_phase(rows, trainer, g_state, batch, gd_counts, device):
     log(f"(t) splat_grad at {h}x{w}, C={c}: kernel ms {ms:.4f} (device "
         f"{dev[0]:.4f}), plain ms {pms:.4f}, bound {b_ms:.4f} ({b_by}, "
         f"{nbytes / 1e6:.1f} MB, {entries} visible entries)")
+    log(f"(t) splat_grad on the G step's own upstream: bit-equal to plain; "
+        f"device ms {real_dev[0]:.4f}; (corner, 4-channel group) pairs "
+        f"that divide: {off:.6f}, that hold an exact zero: {zero:.6f}")
     row = {"name": f"splat_grad[c{c}]", "route": "cuda",
            "source": SPLAT_SRC, "replaces": SPLAT_SPEC,
            "replaces_note": "no Pallas kernel: XLA's autodiff of the "
@@ -1513,7 +1636,10 @@ def grad_phase(rows, trainer, g_state, batch, gd_counts, device):
            "count_key": GRAD_KEY, "max_abs_err": 0.0, "ms": ms,
            "device_ms": dev[0], "device_all_ms": dev[1], "plain_ms": pms,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-           "points": n, "visible_entries": entries}
+           "points": n, "visible_entries": entries,
+           "real_upstream_device_ms": real_dev[0],
+           "real_upstream_groups_dividing": off,
+           "real_upstream_groups_with_zero": zero}
     settle(row, gd_counts)
     row["path"] = (f"training: 2 G+D iterations of inpainting_ref at {h}x{w},"
                    f" batch {TRAIN_BATCH}")
@@ -1894,9 +2020,9 @@ MASK_CANVAS = 512           # resolve_mask_source's inference canvas
 
 def nms_work(boxes, scores, thresh: float):
     """(rounds, IoUs): the rounds of the greedy loop whose slot is alive
-    (each ends in a barrier in the kernel) and the IoUs they compute (one a
-    later slot still alive), over sorted sets on the CPU: the work this
-    data needs."""
+    (each a step of the kernel's scan) and the IoUs they need (one a later
+    slot still alive), over sorted sets on the CPU: the work this data
+    needs."""
     import numpy as np
     from kbe_torch.ops import nms as N
 
@@ -1936,21 +2062,39 @@ def nms_sets_of_forward(model, canvas):
     return calls
 
 
+def item_canvas(size, canvas_size: int, device: str):
+    """A synthetic item's canvas, as the mask source builds it: the first
+    item of ``synthetic_batches(1, *size)`` at half size in [0, 1],
+    resized into the top left of a ``canvas_size``^2 zero canvas."""
+    import torch
+    from kbe_torch.ops.resize import resize_bilinear_antialias
+    from kbe_torch.train.data import synthetic_batches
+
+    small = _half_01(next(synthetic_batches(1, *size))["image"][0])
+    s = canvas_size / max(small.shape[:2])
+    rh, rw = round(small.shape[0] * s), round(small.shape[1] * s)
+    canvas = torch.zeros((canvas_size, canvas_size, 3), device=device)
+    canvas[:rh, :rw] = resize_bilinear_antialias(
+        torch.from_numpy(small).to(device), rh, rw)
+    return canvas
+
+
 def nms_rows(rows, model, canvas):
     """Kernel ``nms`` against its plain loop on the card, bit-equal: on the
     RPN's five sets and the box set of a real forward, and on tie,
-    zero-slot and full-overlap sets; then the two real launches timed as
-    rows (launches filled in by the caller)."""
+    zero-slot, full-overlap and 1000-slot sets; then the two real launches
+    timed as rows (launches filled in by the caller)."""
     import torch
     from kbe_torch.ops import nms as N
 
     g = torch.Generator().manual_seed(5)
     extra = []
-    for case in ("ties", "zero_slots", "full_overlap"):
-        xy = torch.rand(512, 2, generator=g) * 480.0
-        boxes = torch.cat([xy, xy + 4.0 + torch.rand(512, 2, generator=g)
+    for case in ("ties", "zero_slots", "full_overlap", "1000_slots"):
+        n = 1000 if case == "1000_slots" else 512
+        xy = torch.rand(n, 2, generator=g) * 480.0
+        boxes = torch.cat([xy, xy + 4.0 + torch.rand(n, 2, generator=g)
                            * 120.0], 1)
-        scores = torch.rand(512, generator=g)
+        scores = torch.rand(n, generator=g)
         if case == "ties":
             scores = torch.round(scores * 4) / 4
         elif case == "zero_slots":
@@ -1970,6 +2114,10 @@ def nms_rows(rows, model, canvas):
         log(f"(w) nms {tag}: {boxes.shape[0]} set(s) of up to "
             f"{boxes.shape[1]}, {int((scores > 0).sum())} alive, {kept} "
             "kept: bit-equal to the plain loop on the card")
+        if tag == "1000_slots":
+            ms = timed(lambda: N.keep_cuda(boxes, scores, thresh, "compare"),
+                       20)
+            log(f"(w) nms {tag}: call ms {ms:.4f}")
         if tag in ("rpn", "box"):
             out[tag] = (boxes, scores, thresh)
     for tag, (boxes, scores, thresh) in out.items():
@@ -1983,9 +2131,10 @@ def nms_rows(rows, model, canvas):
         # bytes: boxes and scores read once, the kept scores written once;
         # operations: 15 f32 operations an IoU and its compare
         b_ms, b_by = bound(sets * cap * (16 + 4 + 4), ious * 15)
-        log(f"(w) nms[{tag}]: {sets} set(s) x {cap}, {rounds} killing "
-            f"rounds, {ious} IoUs; call ms {ms:.4f} (device {dev[0]:.4f}),"
-            f" plain ms {pms:.4f}, bound {b_ms:.6f} ({b_by})")
+        log(f"(w) nms[{tag}]: {sets} set(s) x {cap}, {rounds} live slots "
+            f"(the scan's serial steps), {ious} IoUs; call ms {ms:.4f} "
+            f"(device {dev[0]:.4f}), plain ms {pms:.4f}, bound {b_ms:.6f} "
+            f"({b_by})")
         rows.append({
             "name": f"nms[{tag}]", "route": "cuda", "source": NMS_SRC,
             "replaces": NMS_SPEC,
@@ -1995,7 +2144,8 @@ def nms_rows(rows, model, canvas):
             "bound_by": b_by, "library_ms": None, "sets": sets, "cap": cap,
             "rounds": rounds, "ious": ious, "count_key": f"nms/{tag}",
             "bound_note": "bytes and IoUs of this data; the time goes to "
-                          "the serial rounds, each a barrier"})
+                          "the launch and to the scan's chain of live "
+                          "slots"})
 
 
 # kernel kinds of a forward's profile, by name
@@ -2115,8 +2265,8 @@ def maskrcnn_phase(rows, size=ESTIMATION_SIZE, device: str = "cuda",
       to a temporary directory, loaded through ``cli/train_torch.py``'s
       ``resolve_mask_source`` on ``device`` (canvas ``canvas_size``^2);
     - kernel ``nms`` bit-equal to its plain loop on the card on a real
-      forward's RPN and box sets and on tie, zero-slot and full-overlap
-      sets, and its rows timed (on the card);
+      forward's RPN and box sets and on tie, zero-slot, full-overlap and
+      1000-slot sets, and its rows timed (on the card);
     - the forward on the card against the CPU on one noise image, and on a
       synthetic item's canvas (reported);
     - a forward and the source per item timed;
@@ -2152,16 +2302,7 @@ def maskrcnn_phase(rows, size=ESTIMATION_SIZE, device: str = "cuda",
         f"({sum(p.numel() for p in model.parameters())} parameters) "
         f"through resolve_mask_source in {load_s:.2f} s")
 
-    # a synthetic item's canvas, as the source builds it
-    item = next(synthetic_batches(1, h, w))["image"][0]
-    from kbe_torch.ops.resize import resize_bilinear_antialias
-
-    small = _half_01(item)
-    s = canvas_size / max(small.shape[:2])
-    rh, rw = round(small.shape[0] * s), round(small.shape[1] * s)
-    canvas = torch.zeros((canvas_size, canvas_size, 3), device=device)
-    canvas[:rh, :rw] = resize_bilinear_antialias(
-        torch.from_numpy(small).to(device), rh, rw)
+    canvas = item_canvas(size, canvas_size, device)
     if device == "cuda":
         nms_rows(rows, model, canvas)
 

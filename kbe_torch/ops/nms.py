@@ -6,8 +6,10 @@ whose greedy loop (a ``lax.fori_loop`` in XLA there) is kernel ``nms`` in
 with ``stable=True``, as ``jnp.argsort`` is stable); slot ``i``, in order,
 kills every later slot whose IoU with it is > ``iou_thresh`` if it is still
 alive; a slot starts alive where its score is > 0; suppressed slots keep
-their place with score 0. ``keep_plain`` is the loop written out, the
-kernel computes it bit for bit on one block a set.
+their place with score 0. ``keep_plain`` is the loop written out. The
+kernel computes it bit for bit as a bitmask NMS: the IoU bits of every
+pair at once (a thread-block cluster a set), then one warp's scan of the
+alive bits. It takes sets of up to ``kbe_nms_max_cap()`` (1024) slots.
 
 ``nms_keep_sets`` takes several sets at once: each is sorted, the sorted
 sets are zero-padded to the longest (a slot of score 0 never kills), one
@@ -59,8 +61,10 @@ def keep_plain(boxes: torch.Tensor, scores: torch.Tensor,
 def keep_cuda(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
               tag: str) -> torch.Tensor:
     """Kernel ``nms`` on sorted, zero-padded sets: ``boxes`` (S, cap, 4),
-    ``scores`` (S, cap), contiguous f32 CUDA tensors -> (S, cap). ``tag``
-    names the launch in ``LAUNCHES`` (``nms/<tag>``)."""
+    ``scores`` (S, cap), contiguous f32 CUDA tensors, cap at most
+    ``kbe_nms_max_cap()`` -> (S, cap). ``tag`` names the launch in
+    ``LAUNCHES`` (``nms/<tag>``). A set takes a cluster of one block per
+    64 slots, at most 8."""
     for name, t in (("boxes", boxes), ("scores", scores)):
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous f32 CUDA tensor")
@@ -73,10 +77,11 @@ def keep_cuda(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
                          f"{lib.kbe_nms_max_cap()}")
     out = torch.empty_like(scores)
     LAUNCHES[f"nms/{tag}"] += 1
-    _build.check(lib.kbe_nms(
-        boxes.data_ptr(), scores.data_ptr(), sets, cap,
-        float(np.float32(iou_thresh)), out.data_ptr(),
-        torch.cuda.current_stream(scores.device).cuda_stream), "nms")
+    with torch.cuda.device(scores.device):
+        _build.check(lib.kbe_nms(
+            boxes.data_ptr(), scores.data_ptr(), sets, cap,
+            float(np.float32(iou_thresh)), out.data_ptr(),
+            torch.cuda.current_stream(scores.device).cuda_stream), "nms")
     return out
 
 

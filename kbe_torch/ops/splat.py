@@ -27,8 +27,11 @@ under ``jax.grad``: on the CPU through the plain version's ``index_add_``,
 on the card through ``SplatFunction``, whose backward is the kernel
 ``splat_grad`` (``splat_grad_plain`` beside it): each point gathers
 ``w_k * g[p_k] / (W[p_k] + 1e-7)`` from its visible corners k, in NW, NE,
-SW, SE order. The points, the mask and the pose get no gradient: a render
-whose ``xyz``, ``valid`` or ``pose`` requires one raises.
+SW, SE order (the kernel projects a point once for all its channels, and
+takes each quotient from its corner's reciprocal with two FMA corrections,
+which round it as the division does). The points, the mask and the pose
+get no gradient: a render whose ``xyz``, ``valid`` or ``pose`` requires
+one raises.
 
 ``render_grids`` is the shared body of the grid-cloud entry points of
 ``splat_routed``, ``splat_banded`` and ``legacy``: the TPU package has a

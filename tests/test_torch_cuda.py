@@ -313,25 +313,38 @@ def _grad_case(cuda, case, c):
     """(xyz, valid, h, w) of a gradient case."""
     if case in ("odd", "empty", "all_invalid", "no_mask"):
         return _front_case(cuda, case)
-    h, w = 96, 128  # masked
+    h, w = 96, 128  # masked, edge
     xyz, _, valid = _cloud(cuda, h, w, c, seed=30 + c)
     return xyz, valid, h, w
 
 
+def _equal_or_both_nan(a, b):
+    """Equal values, NaN where the other has NaN (an edge gradient's
+    infinities of both signs meet in a sum)."""
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(
+        torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
+
+
 @pytest.mark.parametrize("c", [1, 4, 68])
 @pytest.mark.parametrize("case", ["masked", "odd", "empty", "all_invalid",
-                                  "no_mask"])
+                                  "no_mask", "edge"])
 def test_splat_grad_matches_plain(cuda, case, c):
     """``splat_grad`` against ``splat_grad_plain`` on the card's saved
     forward and against the CPU's autograd of the plain render: bit-equal;
     one ``grad`` launch a backward (none for no points); two backwards
-    equal."""
+    equal. The edge case takes edge upstream values, and against the plain
+    version also a fifth of the weight sums zeroed (d = 1e-7)."""
     xyz, valid, h, w = _grad_case(cuda, case, c)
     pose = S.make_pose(torch.tensor([1.5, -0.5, -4.0], device=cuda), 128.0,
                        60.0)
     g = torch.Generator().manual_seed(c)
     payload = torch.rand(xyz.shape[0], c, generator=g).to(cuda)
     upstream = torch.rand(h, w, c, generator=g).to(cuda)
+    if case == "edge":
+        from chip_smoke import edge_upstream
+
+        upstream = edge_upstream((h, w, c), c).to(cuda)
     _, existing, zee = S._render(xyz, payload, valid, pose, h, w)
     existing = existing.contiguous()
     S.LAUNCHES.clear()
@@ -340,19 +353,28 @@ def test_splat_grad_matches_plain(cuda, case, c):
     assert dict(S.LAUNCHES) == ({} if case == "empty" else {f"grad/c{c}": 1})
     want = S.splat_grad_plain(xyz, valid, pose, zee, existing,
                               upstream.reshape(-1, c), h, w)
-    assert torch.equal(got, want)
+    same = _equal_or_both_nan if case == "edge" else torch.equal
+    assert same(got, want)
     again = S.grad_cuda(xyz, valid, pose, zee, existing,
                         upstream.reshape(-1, c), h, w)
-    assert torch.equal(got, again)
+    assert same(got, again)
     # the CPU's plain autograd of the whole render
     cpu = payload.cpu().requires_grad_(True)
     rendered, _ = S.splat(xyz.cpu(), cpu,
                           None if valid is None else valid.cpu(), pose.cpu(),
                           h, w)
     (rendered * upstream.cpu()).sum().backward()
-    assert torch.equal(got.cpu(), cpu.grad)
-    if case == "masked":
+    assert same(got.cpu(), cpu.grad)
+    if case in ("masked", "edge"):
         assert (got != 0).any()
+    if case == "edge":
+        empty = existing.clone().reshape(-1)
+        empty[torch.rand(h * w, generator=g).to(cuda) < 0.2] = 0.0
+        got = S.grad_cuda(xyz, valid, pose, zee, empty,
+                          upstream.reshape(-1, c), h, w)
+        assert same(got, S.splat_grad_plain(xyz, valid, pose, zee, empty,
+                                            upstream.reshape(-1, c), h, w))
+        assert got.isinf().any()
 
 
 def test_render_pointcloud_trains_through_the_kernel(cuda):
@@ -467,9 +489,14 @@ def test_validation_adv_gives_a_finite_fid(cuda, tmp_path):
     assert S.LAUNCHES["sum/c68"] == 4 and S.LAUNCHES["zee/c68"] == 4
 
 
+NMS_SIZES = {"sets": (512, 512, 192), "odd": (1, 31, 33, 513),
+             "cap64": (64, 40), "cap192": (192, 100), "cap1000": (1000,),
+             "cap1024": (1024, 1000)}
+
+
 def _nms_sets(case, seed=0):
     g = torch.Generator().manual_seed(seed)
-    sizes = (512, 512, 192) if case == "sets" else (300,)
+    sizes = NMS_SIZES.get(case, (300,))
     sets = []
     for n in sizes:
         xy = torch.rand(n, 2, generator=g) * 480.0
@@ -488,27 +515,44 @@ def _nms_sets(case, seed=0):
 
 
 @pytest.mark.parametrize("case", ["random", "ties", "zero_slots",
-                                  "full_overlap", "sets"])
+                                  "full_overlap", "sets", "odd", "cap64",
+                                  "cap192", "cap1000", "cap1024"])
 def test_nms_kernel_matches_plain(cuda, case):
     """Kernel ``nms`` against the plain greedy loop on the same sorted,
     zero-padded sets, on the card; and ``nms_keep_sets`` on the card
-    against the CPU's, one launch for all sets."""
+    against the CPU's, one launch for all sets. Sets of up to 1024 slots;
+    the caps give clusters of 1 (64), 3 (192), 5 (300) and 8 blocks a
+    set (512 and more), so every split of the IoU rows is run."""
     from kbe_torch.ops import nms as N
 
     sets = _nms_sets(case)
     boxes, scores, _ = N.sort_sets([(b.to(cuda), s.to(cuda))
                                     for b, s in sets])
-    got = N.keep_cuda(boxes, scores, 0.7, "test")
     want = torch.stack([N.keep_plain(b, s, 0.7)
                         for b, s in zip(boxes, scores)])
-    assert torch.equal(got, want)
+    assert torch.equal(N.keep_cuda(boxes, scores, 0.7, "test"), want)
     N.LAUNCHES.clear()
     on_card = N.nms_keep_sets([(b.to(cuda), s.to(cuda)) for b, s in sets],
                               0.5, "test")
     assert N.LAUNCHES["nms/test"] == 1
     for k, (x, y) in enumerate(zip(on_card, N.nms_keep_sets(sets, 0.5))):
         assert torch.equal(x.cpu(), y), k
-        assert 0 < int((y > 0).sum()) < int((sets[k][1] > 0).sum())
+        if sets[k][1].shape[0] > 33:
+            assert 0 < int((y > 0).sum()) < int((sets[k][1] > 0).sum())
+
+
+def test_nms_kernel_refuses_a_set_above_its_cap(cuda):
+    """1024 slots a set at most (``kbe_nms_max_cap``): 1025 raises, with
+    no launch."""
+    from kbe_torch.ops import _build
+    from kbe_torch.ops import nms as N
+
+    assert _build.lib("nms").kbe_nms_max_cap() == 1024
+    N.LAUNCHES.clear()
+    wide = torch.zeros((1, 1025), device=cuda)
+    with pytest.raises(ValueError, match="at most 1024"):
+        N.keep_cuda(torch.zeros((1, 1025, 4), device=cuda), wide, 0.7, "t")
+    assert not N.LAUNCHES
 
 
 def test_maskrcnn_on_the_card_matches_the_cpu(cuda):
@@ -532,6 +576,35 @@ def test_maskrcnn_on_the_card_matches_the_cpu(cuda):
     assert dict(N.LAUNCHES) == {"nms/rpn": 2, "nms/box": 2}
     with torch.no_grad():
         want = load_maskrcnn(tree, device="cpu", **small)(images)
+    assert torch.equal(got["labels"].cpu(), want["labels"])
+    assert (got["boxes"].cpu() - want["boxes"]).abs().max() <= 1e-2
+    agree = ((got["masks"].cpu() > 0.5) == (want["masks"] > 0.5)).float()
+    assert float(agree.mean()) >= 0.999
+    assert int((want["scores"] > 0.5).sum()) >= 1
+
+
+def test_maskrcnn_at_torchvision_capacities_on_the_card(cuda):
+    """``MaskRCNN(pre_nms_top_n=1000, num_proposals=1000)``, torchvision's
+    test-time capacities, on one 64^2 image: the RPN's first level hands
+    the kernel 768 slots and the box head 1000 (above the first kernel's
+    512). The card matches the CPU as with the small capacities; two NMS
+    launches."""
+    import numpy as np
+    from kbe_torch.models.maskrcnn import load_maskrcnn
+    from kbe_torch.ops import nms as N
+    from kbe_torch.utils.reference_convert import convert_maskrcnn, \
+        synthetic_maskrcnn_state_dict
+
+    tree = convert_maskrcnn(synthetic_maskrcnn_state_dict(0))
+    caps = dict(num_proposals=1000, pre_nms_top_n=1000)
+    image = torch.from_numpy(np.random.default_rng(9).uniform(
+        size=(1, 64, 64, 3)).astype(np.float32))
+    N.LAUNCHES.clear()
+    with torch.no_grad():
+        got = load_maskrcnn(tree, device=cuda, **caps)(image.to(cuda))
+    assert dict(N.LAUNCHES) == {"nms/rpn": 1, "nms/box": 1}
+    with torch.no_grad():
+        want = load_maskrcnn(tree, device="cpu", **caps)(image)
     assert torch.equal(got["labels"].cpu(), want["labels"])
     assert (got["boxes"].cpu() - want["boxes"]).abs().max() <= 1e-2
     agree = ((got["masks"].cpu() > 0.5) == (want["masks"] > 0.5)).float()

@@ -4,10 +4,16 @@
   against ``jax.grad`` of kbe_tpu's XLA scatter spec, rtol 1e-5: the same
   products and quotients, the weight sums added in another order.
 - ``splat_grad_plain`` against the plain autograd, and a numpy emulation of
-  the ``splat_grad`` kernel's per-thread gather (project, four corners, z
-  test, ``w_k * (g / (W + 1e-7))`` added NW, NE, SW, SE from zero, one f32
-  rounding per operation, as the kernel's round-to-nearest intrinsics and
-  ``-fmad=false``) against both: bit-equal.
+  the ``splat_grad`` kernel (a tile of points a block: each point projected
+  once, its visible corners' pixels, weights, ``d = W + 1e-7`` and
+  ``RN(1/d)`` kept; then a (point, four channels) pair a thread adding
+  ``w_k * (g / d)`` NW, NE, SW, SE from zero, the quotient by a multiply
+  and two FMA corrections in the normal range and an IEEE division
+  outside it, one f32 rounding per operation, as the kernel's
+  round-to-nearest intrinsics and ``-fmad=false``) against both:
+  bit-equal, also on edge gradients (zeros, subnormals, huge values) and
+  on pixels whose weight sum is 0. The quotient route alone against the
+  IEEE division on adversarial denominators.
 - ``SplatFunction``, the card's autograd node, run on CPU tensors, whose
   forward and backward then take the plain versions: bit-equal to the
   plain autograd.
@@ -21,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import edge_upstream
 from kbe_tpu.ops.splat import render_pointcloud as render_jax
 from kbe_torch.ops import splat as S
 from kbe_torch.ops.geometry import depth_to_points
@@ -100,15 +107,63 @@ def test_splat_grad_plain_equals_autograd(case):
     assert torch.equal(got, case["got"])
 
 
+def _fma32(a, b, c):
+    """f32 ``fma(a, b, c)``, one rounding of the exact ``a * b + c``: the
+    product is exact in f64, TwoSum gives the f64 sum's error, and where
+    the f64 sum sits on an f32 rounding midpoint the error says which way
+    the exact value lies (elsewhere the f64 sum rounds as it does)."""
+    a, b, c = (np.asarray(x, np.float64) for x in (a, b, c))
+    with np.errstate(all="ignore"):  # inf and NaN where the route is off
+        p = a * b
+        s = p + c
+        t = s - p
+        e = (p - (s - t)) + (c - t)
+        r = s.astype(np.float32)
+        toward = np.nextafter(r, np.where(s > r, np.float32(np.inf),
+                                          np.float32(-np.inf)))
+        mid = (r.astype(np.float64) + toward.astype(np.float64)) / 2
+    tie = (s == mid) & (e != 0)
+    up = np.maximum(r, toward)
+    down = np.minimum(r, toward)
+    return np.where(tie, np.where(e > 0, up, down), r).astype(np.float32)
+
+
+def _quotient(g, d, r):
+    """The kernel's ``quotients`` a channel: ``g / d`` from ``r = RN(1/d)``
+    by a multiply and two FMA corrections where d is in [2^-24, 2^24] and
+    |g| in [2^-60, 2^60], an IEEE division elsewhere. Returns it and the
+    route's mask."""
+    f32 = np.float32
+    g, d, r = (np.asarray(x, f32) for x in (g, d, r))
+    a = np.abs(g)
+    fast = ((d >= f32(2.0 ** -24)) & (d <= f32(2.0 ** 24))
+            & (a >= f32(2.0 ** -60)) & (a <= f32(2.0 ** 60)))
+    with np.errstate(all="ignore"):
+        q0 = (g.astype(np.float64) * r.astype(np.float64)).astype(f32)
+        q1 = _fma32(_fma32(-q0, d, g), r, q0)
+        q2 = _fma32(_fma32(-q1, d, g), r, q1)
+        return np.where(fast, q2, g / d), fast
+
+
+GRAD_POINTS, THREADS, GROUP = 128, 256, 4   # the kernel's tile and block
+
+
 def _emulate_kernel(xyz, valid, pose, zee, wsum, grad):
-    """The ``splat_grad`` kernel's threads in numpy f32: for each point, the
-    projection of ``project_at``, ``corner_weights`` and ``corner_pixel``,
-    and the gather of its visible corners in NW, NE, SW, SE order."""
+    """The ``splat_grad`` kernel in numpy f32. Phase 1, a thread a point:
+    the projection of ``project_at``, ``corner_weights`` and
+    ``corner_pixel``, the z test, each visible corner's pixel, weight,
+    ``d = W + 1e-7`` and ``r = RN(1/d)``. Phase 2, a tile's threads over
+    its (point, group of four channels) pairs: ``w_k * quotient(g, d, r)``
+    added over the visible corners in NW, NE, SW, SE order from +0.0."""
     f32 = np.float32
     sx, sy, sz, focal, fb = (f32(v) for v in pose)
     h, w = zee.shape
     zee, wsum = zee.reshape(-1), wsum.reshape(-1)
-    out = np.zeros((xyz.shape[0], grad.shape[1]), f32)
+    n, c = xyz.shape[0], grad.shape[1]
+    pix = np.full((n, 4), -1, np.int64)
+    wts = np.zeros((n, 4), f32)
+    dd = np.ones((n, 4), f32)
+    rr = np.ones((n, 4), f32)
     for i, (px, py, pz) in enumerate(xyz):
         x, y, z = f32(px + sx), f32(py + sy), f32(pz + sz)
         if not z >= f32(0.001) or (valid is not None and not valid[i] > 0):
@@ -119,18 +174,48 @@ def _emulate_kernel(xyz, valid, pose, zee, wsum, grad):
         x0, y0 = np.floor(u), np.floor(v)
         ax, bx = f32(f32(x0 + f32(1)) - u), f32(u - x0)
         ay, by = f32(f32(y0 + f32(1)) - v), f32(v - y0)
-        weights = (f32(ax * ay), f32(bx * ay), f32(ax * by), f32(bx * by))
-        acc = np.zeros(grad.shape[1], f32)
+        wts[i] = (f32(ax * ay), f32(bx * ay), f32(ax * by), f32(bx * by))
         for k in range(4):
             cx, cy = f32(x0 + f32(k & 1)), f32(y0 + f32(k >> 1))
             if not (0 <= cx < w and 0 <= cy < h):
                 continue
-            pix = int(cy) * w + int(cx)
-            if not err <= f32(zee[pix] + f32(1)):
+            p = int(cy) * w + int(cx)
+            if not err <= f32(zee[p] + f32(1)):
                 continue
-            denom = f32(wsum[pix] + f32(1e-7))
-            acc = (acc + weights[k] * (grad[pix] / denom)).astype(f32)
-        out[i] = acc
+            pix[i, k] = p
+            dd[i, k] = f32(wsum[p] + f32(1e-7))
+            rr[i, k] = f32(1) / dd[i, k]
+    # phase 2: each (point, group) pair of a tile visited once
+    groups = (c + GROUP - 1) // GROUP
+    seen = np.zeros((n, groups), np.int64)
+    dq, dgroup = divmod(THREADS, groups)
+    for first in range(0, n, GRAD_POINTS):
+        pts = min(GRAD_POINTS, n - first)
+        for tid in range(THREADS):
+            q, group = divmod(tid, groups)
+            while q < pts:
+                if group >= groups:
+                    group -= groups
+                    q += 1
+                    if q >= pts:
+                        break
+                seen[first + q, group] += 1
+                q, group = q + dq, group + dgroup
+    assert (seen == 1).all()
+    out = np.zeros((n, c), f32)
+    pad = groups * GROUP - c
+    for k in range(4):
+        vis = pix[:, k] >= 0
+        g = grad[pix[vis, k]]
+        q, fast = _quotient(g, dd[vis, k][:, None], rr[vis, k][:, None])
+        # one route for a corner's group of four channels (a channel past C
+        # reads 0, outside the route)
+        fast = np.pad(fast, ((0, 0), (0, pad))).reshape(-1, groups, GROUP)
+        fast = np.repeat(fast.all(-1), GROUP, -1)[:, :c]
+        with np.errstate(all="ignore"):
+            q = np.where(fast, q, g / dd[vis, k][:, None])
+        with np.errstate(over="ignore", invalid="ignore"):  # edge gradients
+            out[vis] = out[vis] + wts[vis, k][:, None] * q
     return out
 
 
@@ -141,6 +226,61 @@ def test_kernel_emulation_equals_autograd(case):
                           zee.numpy(), case["existing"].numpy(),
                           case["grad"].reshape(-1, c))
     np.testing.assert_array_equal(got, case["got"].numpy())
+
+
+def test_kernel_emulation_on_edge_gradients(case):
+    """Edge gradients (``chip_smoke.edge_upstream``: zeros of both signs,
+    subnormals, the route's bounds and their outer neighbours, quotients
+    that overflow), and a fifth of the pixels with their weight sum
+    zeroed (d = 1e-7, r = 1e7): the emulated kernel equals
+    ``splat_grad_plain`` bit for bit, and on the true weight sums the
+    CPU's autograd of the render too."""
+    xyz, valid, pose, zee = _saved(case)
+    c = case["c"]
+    edge = edge_upstream((H * W, c), c).numpy()
+    existing = case["existing"].numpy().reshape(-1).copy()
+    args = (case["xyz"], case["valid"], pose.numpy(), zee.numpy())
+    got = _emulate_kernel(*args, existing.reshape(H, W), edge)
+    payload = torch.as_tensor(case["data"][None]).requires_grad_(True)
+    rendered, _ = S.render_pointcloud(
+        torch.as_tensor(case["xyz"][None]), payload, H, W, FOCAL, BASELINE,
+        valid=None if valid is None else valid[None])
+    (rendered[0] * torch.as_tensor(edge.reshape(H, W, c))).sum().backward()
+    np.testing.assert_array_equal(got, payload.grad[0].numpy())
+    existing[np.random.default_rng(c).uniform(size=H * W) < 0.2] = 0.0
+    got = _emulate_kernel(*args, existing.reshape(H, W), edge)
+    want = S.splat_grad_plain(xyz, valid, pose, zee,
+                              torch.as_tensor(existing),
+                              torch.as_tensor(edge), H, W)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert np.isinf(got).any() and (got != 0).any()
+
+
+def test_quotient_route_is_the_ieee_division():
+    """The fast route's multiply and two FMA corrections against numpy's
+    f32 division (IEEE, correctly rounded): every quotient equal, on
+    denominators whose reciprocal lies within 2^-9 ulp of a rounding
+    midpoint (where RN(g r) is off the most), on the 1e-7 of an empty
+    pixel, and on numerators across the route's range."""
+    f32 = np.float32
+    rng = np.random.default_rng(0)
+    d = rng.uniform(1, 2, 4_000_000).astype(f32)
+    inv = 1.0 / d.astype(np.float64)
+    r = inv.astype(f32)
+    off = np.abs(r.astype(np.float64) - inv) / np.spacing(r)
+    d = d[off > 0.498][:2000]
+    d = np.concatenate([d, d * f32(2.0 ** -20), d * f32(2.0 ** 20),
+                        [f32(1e-7), f32(2.0 ** -24), f32(2.0 ** 24)]])
+    g = (rng.uniform(1, 2, (d.shape[0], 64))
+         * 2.0 ** rng.integers(-60, 60, (d.shape[0], 64))
+         * rng.choice([-1, 1], (d.shape[0], 64))).astype(f32)
+    g[:, 0] = np.nextafter(f32(2.0), f32(0))    # significands near 2
+    g[:, 1] = f32(2.0 ** -60)
+    g[:, 2] = f32(2.0 ** 60)
+    d = d[:, None]
+    q, fast = _quotient(g, d, f32(1) / d)
+    assert fast.all()
+    np.testing.assert_array_equal(q, g / d)
 
 
 def test_splat_function_on_cpu_equals_autograd(case):

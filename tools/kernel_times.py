@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the splat's front half, its accumulation and the fill of a kbe_torch
-tree on the card.
+"""Time the splat's front half, its accumulation, the fill, the greedy NMS
+and the splat's gradient of a kbe_torch tree on the card.
 
     python tools/kernel_times.py [--tree DIR] [--sets 5] [--reps 20]
+        [--only front,accumulate,fill,nms,grad]
 
 Imports ``kbe_torch`` from ``DIR`` (default: this checkout), so one call
 can time two versions of the kernels in turns on one card, for example
@@ -11,10 +12,12 @@ fill, zee and degrid) is ``front_cuda`` where the tree has it (one call,
 which also zeroes the count pass's counts, as a render makes it), else
 ``zee_cuda`` then ``degrid_cuda``. Each tree gets what its own frame loop
 splats: the valid points alone and no mask where its scene keeps them
-(``kept_xyz``), else the whole grids and their mask. The accumulation and
-the fill use the wrappers both versions share: ``accumulate_cuda`` and
-``fill_cuda``. The inputs are those of ``chip_smoke.py`` (its
-``make_cloud``, the same seeds):
+(``kept_xyz``), else the whole grids and their mask. The accumulation,
+the fill, the NMS and the gradient use the wrappers the versions share:
+``accumulate_cuda``, ``fill_cuda``, ``nms.keep_cuda(boxes, scores,
+iou_thresh, tag)`` and ``splat.grad_cuda(xyz, valid, pose, zee, existing,
+grad, h, w)``. The inputs are those of ``chip_smoke.py`` (its
+``make_cloud`` and its phases' helpers, the same seeds):
   (a)  C=4, the frame loop's 3-grid 1024^2 cloud at a frame pose;
   (a2) C=4, one grid at dolly's focal;
   (b)  C=68, the bootstrap's one grid, no mask where the tree takes none;
@@ -22,13 +25,22 @@ the fill use the wrappers both versions share: ``accumulate_cuda`` and
        mask where the tree takes none;
   (p)  C=4, 65,536 points of a 1024^2 grid on one pixel (accumulation);
   (c)  the fill of the (a) render, K=128, the default ROI;
-  (c2) the fill of the (a2) render, dolly's ROI (open disocclusions).
+  (c2) the fill of the (a2) render, dolly's ROI (open disocclusions);
+  (w)  the NMS of (w)'s 512^2 forward: the RPN's five sets of 512 at 0.7
+       and the box set of 256 at 0.5, sorted and padded as the model
+       hands them over (the synthetic item's canvas, seeded weights);
+  (t)  the gradient at (t)'s shape: the third adversarial batch's item 0
+       at 384x512 (196,608 points, no mask), C=68, the upstream gradient
+       of ``grad_check``; and the same upstream times 2^100, whose
+       quotients all take the IEEE division (outside the
+       multiply-and-FMA route's range, where the tree has one).
 Prints the card's name and power limit, then one JSON line: the median over
 ``--sets`` of the mean ms of ``--reps`` calls (CUDA events); for the front
-half also, from ``torch.profiler`` over ``--reps`` calls, the device ms a
-call in its kernels (the sum of their intervals) and its device span (from
-its first kernel's start to its last one's end, the median over the
-calls); and whether the accumulation was bit-equal over two runs.
+half, the NMS and the gradient also, from ``torch.profiler`` over
+``--reps`` calls, the device ms a call in its own kernels; for the front
+half its kernels apart and its device span (from its first kernel's start
+to its last one's end, the median over the calls); and whether the
+accumulation was bit-equal over two runs.
 """
 
 from __future__ import annotations
@@ -56,37 +68,9 @@ def device_span_ms(cs, fn, reps: int) -> float:
         for k in range(0, len(spans), per)) / 1e3
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser()
-    parser.add_argument("--tree", default=HERE)
-    parser.add_argument("--sets", type=int, default=5)
-    parser.add_argument("--reps", type=int, default=20)
-    args = parser.parse_args()
-    tree = os.path.abspath(args.tree)
-    sys.path.insert(0, tree)
+def splat_times(cs, args, only, med):
+    """The front half, the accumulation and the fill (see above)."""
     import torch
-
-    if not torch.cuda.is_available():
-        print("kernel_times: no CUDA device", file=sys.stderr)
-        return 2
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    from kbe_torch.config import EffectConfig, ZoomSettings
-    from kbe_torch.ops import discfill as D
-    from kbe_torch.ops import splat as S
-    from kbe_torch.pipeline.kenburns import fill_roi_of
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-
-    def med(fn):
-        return statistics.median(cs.timed(fn, args.reps)
-                                 for _ in range(args.sets))
-
     size = cs.SIZE
     shift = torch.tensor([-9.5, 6.25, -30.0])
     xyz, payload, valid = cs.make_cloud(3, 4, seed=1, shift=shift)
@@ -142,7 +126,7 @@ def main() -> int:
         return name.replace("(anonymous namespace)::", "").split("(")[0][:60]
 
     front_ms, front_dev, front_span, front_kernels = {}, {}, {}, {}
-    for name, (x, p, v, q) in cases.items():
+    for name, (x, p, v, q) in cases.items() if "front" in only else ():
         c = p.shape[1]
         front_ms[name] = med(lambda: front(x, v, q, c))
         front_dev[name] = statistics.median(
@@ -155,7 +139,7 @@ def main() -> int:
             cs, lambda: front(x, v, q, c), args.reps)
 
     times, equal = {}, {}
-    for name, (x, p, v, q) in (
+    for name, (x, p, v, q) in () if "accumulate" not in only else (
             ("accumulate_c4", cases["c4"]),
             ("accumulate_c4_dolly", cases["c4_dolly"]),
             ("accumulate_c68", cases["c68"]),
@@ -170,7 +154,7 @@ def main() -> int:
         equal[name] = bool(torch.equal(
             S.accumulate_cuda(x, v, p, q, deg, size, size),
             S.accumulate_cuda(x, v, p, q, deg, size, size)))
-    for name, sc, q, zoom, effect in (
+    for name, sc, q, zoom, effect in () if "fill" not in only else (
             ("fill", scene, pose, ZoomSettings.default_3d(size, size),
              EffectConfig()),
             ("fill_dolly", scene1, pose1,
@@ -180,14 +164,120 @@ def main() -> int:
         render = render.contiguous()
         roi = fill_roi_of(size, size, zoom, effect)
         times[name] = med(lambda: D.fill_cuda(render, depth, 128, roi))
-    print(json.dumps({
-        "tree": tree,
-        "front": "front_cuda" if hasattr(S, "front_cuda")
-        else "zee_cuda + degrid_cuda",
-        "front_ms": front_ms, "front_device_ms": front_dev,
-        "front_device_span_ms": front_span,
-        "front_kernel_device_ms": front_kernels, "ms": times,
-        "accumulate_run_to_run_equal": equal}), flush=True)
+    out = {"front_ms": front_ms, "front_device_ms": front_dev,
+           "front_device_span_ms": front_span,
+           "front_kernel_device_ms": front_kernels, "ms": times,
+           "accumulate_run_to_run_equal": equal}
+    if "front" in only:
+        out["front"] = ("front_cuda" if hasattr(S, "front_cuda")
+                        else "zee_cuda + degrid_cuda")
+    return out
+
+
+def nms_times(cs, args, med):
+    """(w)'s two NMS launches of a 512^2 forward (see above)."""
+    import torch
+    from kbe_torch.models.maskrcnn import load_maskrcnn
+    from kbe_torch.ops import nms as N
+    from kbe_torch.utils.reference_convert import convert_maskrcnn, \
+        synthetic_maskrcnn_state_dict
+
+    model = load_maskrcnn(convert_maskrcnn(synthetic_maskrcnn_state_dict(0)),
+                          device="cuda")
+    canvas = cs.item_canvas(cs.ESTIMATION_SIZE, cs.MASK_CANVAS, "cuda")
+    ms, dev, work = {}, {}, {}
+    for sets, thresh, tag in cs.nms_sets_of_forward(model, canvas):
+        boxes, scores, _ = N.sort_sets(sets)
+        want = torch.stack([N.keep_plain(b, s, thresh)
+                            for b, s in zip(boxes, scores)])
+        work[tag] = dict(zip(("sets", "cap"), scores.shape))
+        work[tag]["live_slots"], work[tag]["ious"] = cs.nms_work(
+            boxes, scores, thresh)
+        fn = lambda: N.keep_cuda(boxes, scores, thresh, "time")
+        if not torch.equal(fn(), want):
+            raise AssertionError(f"nms {tag}: not bit-equal to the plain "
+                                 "loop")
+        ms[tag] = med(fn)
+        dev[tag] = statistics.median(
+            cs.device_ms(fn, args.reps, ("nms_kernel",))[0]
+            for _ in range(args.sets))
+    return {"nms_ms": ms, "nms_device_ms": dev, "nms_work": work}
+
+
+def grad_times(cs, args, med):
+    """``splat_grad`` at (t)'s shape (see above)."""
+    import itertools
+
+    import torch
+    from kbe_torch.ops import splat as S
+    from kbe_torch.train.data import synthetic_batches
+    from kbe_torch.train.trainer_inpaint import TRAIN_CAMERA, to_device
+
+    h, w = cs.TRAIN_SIZE
+    batch = next(itertools.islice(synthetic_batches(
+        cs.TRAIN_BATCH, h, w, mode="inpainting", camera=TRAIN_CAMERA), 2,
+        None))
+    xyz = cs.step_points(to_device(batch, "cuda"), TRAIN_CAMERA)
+    c = 68
+    g = torch.Generator().manual_seed(c)
+    upstream = torch.rand(h * w, c, generator=g).cuda()
+    payload = torch.rand(xyz.shape[0], c, generator=g).cuda()
+    pose = S.make_pose(torch.zeros(3, device="cuda"), TRAIN_CAMERA.focal,
+                       TRAIN_CAMERA.baseline)
+    _, existing, zee = S._render(xyz, payload, None, pose, h, w)
+    existing = existing.contiguous()
+    ms, dev, equal = {}, {}, {}
+    for name, up in (("grad_c68", upstream),
+                     ("grad_c68_ieee_quotients", upstream * 2.0 ** 100)):
+        fn = lambda: S.grad_cuda(xyz, None, pose, zee, existing, up, h, w)
+        equal[name] = bool(torch.equal(fn(), S.splat_grad_plain(
+            xyz, None, pose, zee, existing, up, h, w)))
+        ms[name] = med(fn)
+        dev[name] = statistics.median(
+            cs.device_ms(fn, args.reps, ("splat_grad",))[0]
+            for _ in range(args.sets))
+    return {"grad_ms": ms, "grad_device_ms": dev,
+            "grad_points": int(xyz.shape[0]),
+            "grad_equal_to_plain": equal}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--tree", default=HERE)
+    parser.add_argument("--sets", type=int, default=5)
+    parser.add_argument("--reps", type=int, default=20)
+    parser.add_argument("--only", default="front,accumulate,fill,nms,grad",
+                        help="comma-separated groups to time")
+    args = parser.parse_args()
+    only = set(args.only.split(","))
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+
+    def med(fn):
+        return statistics.median(cs.timed(fn, args.reps)
+                                 for _ in range(args.sets))
+
+    out = {"tree": tree}
+    if only & {"front", "accumulate", "fill"}:
+        out.update(splat_times(cs, args, only, med))
+    if "nms" in only:
+        out.update(nms_times(cs, args, med))
+    if "grad" in only:
+        out.update(grad_times(cs, args, med))
+    print(json.dumps(out), flush=True)
     return 0
 
 
