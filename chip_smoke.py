@@ -21,7 +21,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernels each: the front half's fill, zee and degrid, then count,
      place and sum; 75 fills);
      prints the
-     scene's size and each grid's valid share;
+     scene's size, each grid's valid share and the fill's holes a frame;
   5. card vs CPU: the default effect, dolly and partial-conv inpainting at
      256^2, f32, 5 steps, same weights, mean SSIM of the frames >= 0.99;
   6. the other entry points and inference modes:
@@ -100,6 +100,17 @@ Phases, in order; any failure raises and the script exits non-zero:
          kernels and one ``splat_grad`` a local item);
          ``batch_parallel_effect`` of 4 images at 256^2, 5 steps, on the
          two ranks, equal to the single-image effect;
+     (y) trained weights: ``tools/make_bench_weights_torch.py``'s recipe at
+         a short schedule, twice from one seed, bit-equal checkpoints; the
+         checkpoint found by ``find_bench_weights`` (``KBE_BENCH_WEIGHTS``);
+         the 1024^2, 75-frame effect at the production mix from it through
+         ``KenBurnsPipeline.create(checkpoint=...)``, its launch counts (77
+         renders, 75 fills), frames/s, valid points per grid and hole
+         pixels a frame, and the fill of its last frame bit-identical to
+         the plain fill, timed as the row ``discfill/trained``; ``cli/kbe_torch.py``'s ``run --checkpoint`` at
+         256^2 equal to the loaded pipeline's frames; and
+         ``tools/fidelity_report_torch.py``'s production path against its
+         spec path at 256^2, 9 steps, mean SSIM >= 0.99;
   7. the ``{"kernels": [...]}`` line, then the device line last. A row's
      ``launches`` are those of the run named in its ``path``, counted from
      zero just before that run. ``ms`` is the call's time (CUDA events
@@ -113,7 +124,8 @@ build at first use): ``CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 -c "import
 chip_smoke as cs; t = cs.training_phase([]); cs.evaluation_phase([], t,
 cs.depth_phase())"`` runs (t), (u) and (v) alone, ``... -c "import
 chip_smoke as cs; cs.maskrcnn_phase([])"`` runs (w) alone, and ``... -c
-"import chip_smoke as cs; cs.dp_phase()"`` runs (x) alone.
+"import chip_smoke as cs; cs.dp_phase()"`` runs (x) alone, and ``... -c
+"import chip_smoke as cs; cs.trained_weights_phase([])"`` runs (y) alone.
 
 Tolerances: none for the kernels. Every kernel is exact (``nms`` against
 its plain loop on the card; ``splat_grad`` too, against the
@@ -672,33 +684,28 @@ def main_path():
     if int(frames.max()) == int(frames.min()):
         raise AssertionError("frames are constant")
 
-    # timing on the card: the two halves of the effect, frames left there
-    fn = pipe.effect_fn(SIZE, SIZE, ZoomSettings.default_3d(SIZE, SIZE))
-    image = torch.as_tensor(image_np, device="cuda")[None]
-    times = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        state = fn.front_end(pipe.models, image)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        fn.render_frames(state)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        times.append((t2 - t0, t1 - t0, t2 - t1))
-    total, front, loop = min(times)
-    scene = state.scene
-    grids = scene.valid.shape[0] // (SIZE * SIZE)
-    shares = [round(float(v.mean()), 6)
-              for v in scene.valid.reshape(grids, -1)]
-    log(f"main path scene: {grids} grids of {SIZE}^2 = {scene.xyz.shape[0]} "
-        f"points, {scene.kept_xyz.shape[0]} valid "
-        f"({scene.kept_xyz.shape[0] / scene.xyz.shape[0]:.6f}), which the "
-        f"frame loop splats with no mask; valid share per grid {shares}")
+    # timing on the card: the two halves of the effect, frames left there;
+    # then the scene's valid points and the fill's holes
+    from tools.fidelity_report_torch import path_stats
+
+    zoom = ZoomSettings.default_3d(SIZE, SIZE)
+    stats = path_stats(pipe.effect_fn(SIZE, SIZE, zoom), pipe.models,
+                       torch.as_tensor(image_np, device="cuda")[None], SIZE,
+                       SIZE, zoom, pipe.effect)
+    log(f"main path scene: {len(stats['valid_points_per_grid'])} grids of "
+        f"{SIZE}^2 = {stats['points']} points, {stats['valid_points']} valid "
+        f"({stats['valid_points'] / stats['points']:.6f}), which the frame "
+        f"loop splats with no mask; valid share per grid "
+        f"{[round(v, 6) for v in stats['valid_share_per_grid']]}; hole "
+        f"pixels a frame in the fill's ROI {stats['fill_roi']}: "
+        f"{stats['hole_pixels_a_frame']:.1f} (most "
+        f"{stats['hole_pixels_max_frame']})")
+    total = min(stats["runs_s"])
     log(f"main path {SIZE}^2 x {STEPS} frames, bf16 inpainting + f32 depth: "
-        f"best of 2 {total:.4f} s = {STEPS / total:.3f} frames/s "
-        f"(front end {front:.4f} s, pose loop {loop:.4f} s = "
-        f"{loop / STEPS * 1e3:.3f} ms/frame); all runs "
-        f"{[round(t[0], 4) for t in times]}; the counted run through "
+        f"best of 2 {total:.4f} s = {stats['frames_per_s']:.3f} frames/s "
+        f"(front end {stats['front_end_s']:.4f} s, pose loop "
+        f"{stats['pose_loop_ms_a_frame']:.3f} ms/frame); all runs "
+        f"{[round(t, 4) for t in stats['runs_s']]}; the counted run through "
         f"KenBurnsPipeline.__call__ with frames copied to the host "
         f"{wall:.4f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; frames mean "
@@ -3002,6 +3009,165 @@ def dp_phase(size=TRAIN_SIZE, device: str = "cuda"):
         f"{t_ranks - t_phase:.1f} s)")
 
 
+BW_STEPS = (3, 2, 3)        # (y)'s short recipe: depth, refine, inpaint
+FIDELITY_BAR = 0.99         # PERF.md section 2: mean SSIM, production/spec
+
+
+def _nets_equal(a: str, b: str):
+    """Whether two pipeline checkpoints hold equal nets, bit for bit; and
+    whether the files are equal byte for byte."""
+    import torch
+
+    na = torch.load(a, weights_only=True)["pipeline"]
+    nb = torch.load(b, weights_only=True)["pipeline"]
+    nets = set(na) == set(nb) and all(
+        na[k].keys() == nb[k].keys()
+        and all(torch.equal(na[k][e], nb[k][e]) for e in na[k])
+        for k in na)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return nets, fa.read() == fb.read()
+
+
+def trained_weights_phase(rows, size: int = SIZE, steps: int = STEPS,
+                          small: int = 256, fid_steps: int = 9,
+                          device: str = "cuda", sizes=None):
+    """(y) trained weights: ``tools/make_bench_weights_torch.py``'s recipe
+    at a short schedule (``BW_STEPS``), twice from one seed, bit-equal
+    checkpoints; the checkpoint found through ``find_bench_weights`` with
+    ``KBE_BENCH_WEIGHTS`` set; the ``size``^2 x ``steps`` effect at the
+    production mix from it through ``KenBurnsPipeline.create(checkpoint=)``
+    (launch counts, frames/s, valid points per grid, holes a frame), and on
+    the card the fill on its last frame against the plain fill, timed as a
+    row of ``rows``; ``cli/kbe_torch.py``'s ``run --checkpoint --bf16`` at ``small``^2 equal
+    to the loaded pipeline's frames; and ``fidelity_report_torch``'s
+    production path against its spec path at ``small``^2 x ``fid_steps``,
+    mean SSIM at least ``FIDELITY_BAR``. ``sizes``: the recipe's stage
+    sizes (a CPU rehearsal's)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from cli import kbe_torch as cli
+    from kbe_torch.config import EffectConfig, ZoomSettings
+    from kbe_torch.data import demo_scene_image
+    from kbe_torch.pipeline import KenBurnsPipeline
+    from kbe_torch.train.checkpoint import find_bench_weights
+    from tools.fidelity_report_torch import fidelity_report, path_stats
+    from tools.make_bench_weights_torch import make_bench_weights
+
+    mix = dict(dtype=torch.bfloat16, depth_dtype=torch.float32)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        made = [make_bench_weights(*BW_STEPS, out_dir=os.path.join(
+            tmp, f"run{i}"), device=device, sizes=sizes,
+            log=lambda *a: None) for i in range(2)]
+        nets, files = _nets_equal(made[0][0], made[1][0])
+        losses = [{k: v["losses"] for k, v in r.items()} for _, r in made]
+        if not nets or losses[0] != losses[1]:
+            raise AssertionError(f"(y) two recipe runs differ: nets equal "
+                                 f"{nets}, losses {losses}")
+        report = made[0][1]
+        log(f"(y) recipe at {list(BW_STEPS)} steps (depth, refine, "
+            "inpaint), twice from one seed: nets and losses bit-equal, "
+            f"files byte-equal {files}; ms a step (first run, the first "
+            "step included) " + json.dumps(
+                {k: round(v["ms_a_step"], 1) for k, v in report.items()})
+            + f"; {os.path.getsize(made[0][0]) / 2**20:.1f} MiB")
+        for name, stage in report.items():
+            _check_losses(f"(y) {name}", {str(i): v for i, v in
+                                           enumerate(stage["losses"])})
+
+        before = os.environ.get("KBE_BENCH_WEIGHTS")
+        os.environ["KBE_BENCH_WEIGHTS"] = made[0][0]
+        try:
+            ckpt = find_bench_weights()
+        finally:
+            if before is None:
+                del os.environ["KBE_BENCH_WEIGHTS"]
+            else:
+                os.environ["KBE_BENCH_WEIGHTS"] = before
+        if ckpt != made[0][0]:
+            raise AssertionError(f"(y) find_bench_weights gave {ckpt}")
+
+        pipe = KenBurnsPipeline.create(
+            effect=EffectConfig(num_steps=steps), device=device,
+            checkpoint=ckpt, **mix)
+        image_np = demo_scene_image(size, size)
+        pipe(image_np)  # warm-up
+        clear_launches()
+        frames = pipe(image_np)
+        counts = launch_counts()
+        want = ({**splat_counts(4, steps), **splat_counts(68, 2),
+                 "discfill": steps} if device == "cuda" else {})
+        if counts != want:
+            raise AssertionError(f"(y) launches {counts}, want {want}")
+        if frames.shape != (steps, size, size, 3) \
+                or int(frames.max()) == int(frames.min()):
+            raise AssertionError(f"(y) frames {frames.shape}, constant or "
+                                 "not")
+        zoom = ZoomSettings.default_3d(size, size)
+        stats = path_stats(pipe.effect_fn(size, size, zoom), pipe.models,
+                           torch.as_tensor(image_np, device=device)[None],
+                           size, size, zoom, pipe.effect)
+        log(f"(y) trained weights, {size}^2 x {steps} frames, bf16 "
+            f"inpainting + f32 depth: launches {json.dumps(counts)}; "
+            f"{stats['frames_per_s']:.3f} frames/s (front end "
+            f"{stats['front_end_s'] * 1e3:.3f} ms, pose loop "
+            f"{stats['pose_loop_ms_a_frame']:.3f} ms/frame; runs "
+            f"{[round(t, 4) for t in stats['runs_s']]} s); "
+            f"{stats['valid_points']} valid points of {stats['points']}, per "
+            f"grid {stats['valid_points_per_grid']} (shares "
+            f"{[round(v, 6) for v in stats['valid_share_per_grid']]}); hole "
+            f"pixels a frame in the fill's ROI {stats['fill_roi']}: "
+            f"{stats['hole_pixels_a_frame']:.1f} (most "
+            f"{stats['hole_pixels_max_frame']}); frames mean "
+            f"{float(frames.mean()):.3f}")
+        if device == "cuda":
+            from kbe_torch.ops.splat import render_posed
+            from kbe_torch.pipeline.kenburns import fill_roi_of
+
+            state = pipe.effect_fn(size, size, zoom).front_end(
+                pipe.models, torch.as_tensor(image_np, device=device)[None])
+            render, existing = render_posed(state.scene, state.poses[-1],
+                                            size, size)
+            fill_phase("(y) fill, the last frame on trained weights", render,
+                       existing, fill_roi_of(size, size, zoom, pipe.effect),
+                       rows, name="discfill/trained")
+            settle(rows[-1], counts)
+            rows[-1]["path"] = (f"(y): {size}^2 x {steps} frames on the "
+                                "recipe's weights; the row times the last "
+                                "frame's fill")
+            del state, render, existing
+        del pipe
+
+        image = (demo_scene_image(small, small) * 255.0).astype(np.uint8)
+        got = cli.run(cli.build_parser().parse_args(
+            ["--checkpoint", ckpt, "--bf16", "--steps", "5", "--device",
+             device]), image)
+        want = KenBurnsPipeline.create(
+            effect=EffectConfig(num_steps=5), device=device,
+            checkpoint=ckpt, **mix)(image.astype(np.float32) / 255.0)
+        if not np.array_equal(got, want):
+            raise AssertionError("(y) cli run --checkpoint: frames differ "
+                                 "from the loaded pipeline's")
+        log(f"(y) cli run --checkpoint --bf16 at {small}^2, 5 steps: frames "
+            "equal to the loaded pipeline's")
+
+        fid = fidelity_report(small, fid_steps, checkpoint=ckpt,
+                              device=device, log=lambda *a: None)
+    log(f"(y) fidelity, production against spec at {small}^2 x "
+        f"{fid_steps}: mean SSIM {fid['mean_ssim']:.6f}, min "
+        f"{fid['min_ssim']:.6f}, max abs diff "
+        f"{fid['max_abs_diff_uint8']:.0f}; kernels_f32_path mean "
+        f"{fid['kernels_f32_path']['mean_ssim']:.6f}, min "
+        f"{fid['kernels_f32_path']['min_ssim']:.6f}; production "
+        f"{fid['production_stats']['hole_pixels_a_frame']:.1f} holes a "
+        f"frame; {time.perf_counter() - t_phase:.1f} s in all")
+    if fid["mean_ssim"] < FIDELITY_BAR:
+        raise AssertionError(f"(y) production against spec: mean SSIM "
+                             f"{fid['mean_ssim']} < {FIDELITY_BAR}")
+
+
 def main() -> int:
     # cuBLAS is deterministic under torch.use_deterministic_algorithms only
     # with a fixed workspace, which must be set before its first call
@@ -3058,6 +3224,8 @@ def main() -> int:
     maskrcnn_phase(more)
     torch.cuda.empty_cache()
     dp_phase()
+    torch.cuda.empty_cache()
+    trained_weights_phase(more)
     for row in more:
         if "mode" in row:
             mode = row["mode"]

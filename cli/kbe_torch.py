@@ -4,7 +4,9 @@ The flags of ``cli/kbe.py`` (themselves those of the reference ``kbe.py``:
 --in/--out, --dolly, --write-frames, --2d, --pretrained-refine,
 --pretrained-estim, --partial-conv, --inpaint-depth, model paths, the 8
 crop-window parameters with aspect-ratio completion and in-bounds
-validation) plus ``--device`` (default ``cuda``).
+validation) plus ``--device`` (default ``cuda``). ``--checkpoint`` loads a
+pipeline ``.tar`` of the port (``tools/make_bench_weights_torch.py``'s), as
+``cli/kbe.py`` loads its orbax one; an orbax directory raises.
 
 Usage:
   python cli/kbe_torch.py --in images/input.jpg --out out_dir [--dolly] ...
@@ -43,8 +45,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--refine-path", default=None)
     p.add_argument("--estim-path", default=None)
     p.add_argument("--checkpoint", default=None,
-                   help="orbax pipeline checkpoint directory (not readable "
-                        "without JAX: refused)")
+                   help="pipeline checkpoint .tar of the port (as "
+                        "tools/make_bench_weights_torch.py writes it); "
+                        "takes precedence over the reference .tar paths; "
+                        "an orbax directory is refused (it needs JAX)")
     for flag in ("startU", "startV", "startW", "startH",
                  "endU", "endV", "endW", "endH"):
         p.add_argument(f"--{flag}", type=float, default=None)
@@ -99,13 +103,6 @@ def run(args, image: np.ndarray) -> np.ndarray:
     from kbe_torch.config import EffectConfig
     from kbe_torch.pipeline import KenBurnsPipeline
 
-    if args.checkpoint:
-        raise NotImplementedError(
-            "--checkpoint names an orbax checkpoint directory, and reading "
-            "one needs a reader that does not import JAX, which kbe_torch "
-            "does not have; convert with cli/kbe.py's stack, or pass the "
-            "reference .tar files (--estim-path, --refine-path, "
-            "--inpaint-path)")
     if args.pretrained_estim:
         image = image[:, :, ::-1]  # BGR -> RGB
 
@@ -123,9 +120,11 @@ def run(args, image: np.ndarray) -> np.ndarray:
         inpaint_depth=args.inpaint_depth is not None,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         depth_dtype=torch.float32 if args.bf16 else None,
-        device=args.device)
+        device=args.device, checkpoint=args.checkpoint or None)
 
-    if any((args.inpaint_path, args.refine_path, args.estim_path)):
+    if args.checkpoint:
+        print(f"loaded {args.checkpoint}")
+    elif any((args.inpaint_path, args.refine_path, args.estim_path)):
         from kbe_torch.utils.reference_convert import load_torch_pipeline
 
         load_torch_pipeline(

@@ -69,6 +69,18 @@ def median_filter_binary(x: torch.Tensor, size: int) -> torch.Tensor:
     return (total > majority).to(x.dtype).permute(0, 2, 3, 1)
 
 
+def spatial_filter(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The reference's string-typed filter entry point
+    (``utils/common.py:394``): 'laplacian', 'median-3' or 'median-5'."""
+    if kind == "laplacian":
+        return laplacian_filter(x)
+    if kind == "median-3":
+        return median_filter(x, 3)
+    if kind == "median-5":
+        return median_filter(x, 5)
+    raise ValueError(f"unknown spatial filter {kind!r}")
+
+
 def validity_mask(disparity: torch.Tensor,
                   threshold: float = 0.03) -> torch.Tensor:
     """``|laplacian(disp / disp.max())| < threshold`` as float.

@@ -49,7 +49,7 @@ from kbe_torch.ops.splat import prepare_scene, render_pointcloud, \
 from kbe_torch.ops.splat_routed import render_grids_fast
 from kbe_torch.pipeline.inpaint_flow import InpaintModels, \
     pointcloud_inpainting
-from kbe_torch.utils.convert import load_flax
+from kbe_torch.utils.convert import load_params
 
 SPLAT_METHODS = ("auto", "banded", "routed", "scatter", "delta", "pallas")
 FILL_IMPLS = ("pallas", "xla")
@@ -152,8 +152,9 @@ def models_from_flax(trees, device=None, dtype=torch.float32,
                      inpaint_depth: Optional[bool] = None) -> PipelineModels:
     """Nets loaded from Flax param trees: ``trees`` has the fields of
     ``PipelineModels`` (a ``kbe_tpu`` ``PipelineParams`` as numpy, or a
-    dict). ``inpaint_depth=None`` builds the second pair when the trees
-    hold one."""
+    dict). A dict of the port's own state dicts loads too
+    (``kbe_torch.utils.convert.load_params``). ``inpaint_depth=None``
+    builds the second pair when the trees hold one."""
 
     def tree(name):
         return (getattr(trees, name, None) if hasattr(trees, "_fields")
@@ -170,7 +171,7 @@ def models_from_flax(trees, device=None, dtype=torch.float32,
             raise ValueError(f"no param tree for {name}" + (
                 ": inpaint_depth requires context_depth"
                 if name == "context_depth" else ""))
-        load_flax(m, tree(name))
+        load_params(m, tree(name))
     return _place(models, resolve_device(device), dtype, depth_dtype)
 
 
@@ -444,19 +445,29 @@ class KenBurnsPipeline:
                inpaint_depth: bool = False,
                dtype: torch.dtype = torch.float32,
                depth_dtype: Optional[torch.dtype] = None,
-               device=None) -> "KenBurnsPipeline":
+               device=None,
+               checkpoint: Optional[str] = None) -> "KenBurnsPipeline":
         """Seeded random nets on ``device`` (default ``cuda``; raises where
-        there is no GPU unless ``device="cpu"``). The production mix is
-        ``dtype=torch.bfloat16, depth_dtype=torch.float32``. For other
-        weights, build the dataclass with ``models_from_flax``, or load
-        reference checkpoints with
+        there is no GPU unless ``device="cpu"``), or with ``checkpoint`` the
+        nets of a pipeline ``.tar`` (``kbe_torch.train.checkpoint.
+        load_pipeline_params``; ``seed`` is then unused). The production
+        mix is ``dtype=torch.bfloat16, depth_dtype=torch.float32``. For
+        other weights, build the dataclass with ``models_from_flax``, or
+        load reference checkpoints with
         ``kbe_torch.utils.reference_convert.load_torch_pipeline``."""
         dev = resolve_device(device)
+        if checkpoint is not None:
+            from kbe_torch.train.checkpoint import load_pipeline_params
+
+            models = load_pipeline_params(
+                checkpoint, dev, dtype, depth_dtype, pretrained_refine,
+                partial_inpainting, inpaint_depth)
+        else:
+            models = create_models(seed, dev, dtype, depth_dtype,
+                                   pretrained_refine, partial_inpainting,
+                                   inpaint_depth)
         return KenBurnsPipeline(
-            camera=camera, effect=effect,
-            models=create_models(seed, dev, dtype, depth_dtype,
-                                 pretrained_refine, partial_inpainting,
-                                 inpaint_depth),
+            camera=camera, effect=effect, models=models,
             device=dev, pretrained_refine=pretrained_refine,
             partial_inpainting=partial_inpainting)
 

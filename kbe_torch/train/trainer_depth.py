@@ -76,7 +76,7 @@ from kbe_torch.train.losses import (compute_loss_grad, compute_loss_ord,
                                     compute_masked_grad_loss,
                                     depth_loss_schedule)
 from kbe_torch.train.metrics import compute_depth_metrics
-from kbe_torch.utils.convert import load_flax
+from kbe_torch.utils.convert import load_params
 from kbe_torch.utils.logging import MetricsWriter, NullWriter
 
 # iterations between checkpoints and validations
@@ -221,7 +221,8 @@ class TrainerDepth:
     model_to_train ('disparity' | 'refine' | 'both'), mask_loss ('none' |
     'same' | 'other'), estimation_size, init, save_name, and
     disparity_rows (a narrower lattice, for tests). ``semantics_params``:
-    the frozen ``Semantics``, a Flax-shaped tree, or None for fresh
+    the frozen ``Semantics``, a Flax-shaped tree or the port's state dict
+    (``load_params``), or None for fresh
     weights drawn as a Flax init from ``seed + 2``. ``seed`` seeds the
     fresh nets' draws; ``device`` defaults to ``cuda``, which raises where
     there is none, or to the device of ``mesh`` (a
@@ -246,7 +247,7 @@ class TrainerDepth:
             flax_default_init(sem, torch.Generator().manual_seed(
                 self.seed + 2))
         else:
-            load_flax(sem, self.semantics_params)
+            load_params(sem, self.semantics_params)
         self.semantics = sem.to(self.device).eval().requires_grad_(False)
         rows = self.hparams.get("disparity_rows")
         self._make_disparity = ((lambda: Disparity(rows=tuple(rows)))
@@ -266,7 +267,7 @@ class TrainerDepth:
     def _state(self, net: nn.Module, params: Any, seed: int,
                tx: Optimizer) -> TrainState:
         if params is not None:
-            load_flax(net, params)
+            load_params(net, params)
         else:
             g = torch.Generator().manual_seed(seed)
             apply_weights_init(flax_default_init(net, g), g,
@@ -279,7 +280,7 @@ class TrainerDepth:
                    disparity_params: Any = None, refine_params: Any = None):
         """The disparity ``TrainState``, and in 'refine' / 'both' mode the
         refine one beside it. ``*_params`` warm-start a net from a
-        Flax-shaped tree; fresh nets get a Flax init, then the conv
+        Flax-shaped tree or the port's state dict; fresh nets get a Flax init, then the conv
         selector ``hparams['init']`` (default xavier, gain 1.4).
         ``image_shape`` is kept for the JAX signature: the nets take any
         size."""

@@ -67,7 +67,7 @@ from kbe_torch.train.trainer_depth import (Optimizer, _detached, _grads,
                                            _writer, make_optimizer,
                                            to_device)
 from kbe_torch.train.view_synthesis import masks_a_from_b, render_view_b
-from kbe_torch.utils.convert import load_flax
+from kbe_torch.utils.convert import load_params
 
 # iterations between checkpoints and validations
 # (training/train_inpaint.py:332-418)
@@ -181,14 +181,15 @@ class TrainerInpaint:
     def init_state(self, image_shape, pretrained_params: Any = None
                    ) -> InpaintState:
         """Fresh nets (a Flax init, then the conv selector
-        ``hparams['init']``, default xavier gain 1.4), or the Flax-shaped
-        ``{'context', 'net'}`` of ``pretrained_params``. ``image_shape``
+        ``hparams['init']``, default xavier gain 1.4), or the
+        ``{'context', 'net'}`` of ``pretrained_params``, Flax-shaped trees
+        or the port's state dicts. ``image_shape``
         is kept for the JAX signature: the nets take any size."""
         del image_shape
         context, net = ContextNet(), self._make_net()
         if pretrained_params is not None:
-            load_flax(context, pretrained_params["context"])
-            load_flax(net, pretrained_params["net"])
+            load_params(context, pretrained_params["context"])
+            load_params(net, pretrained_params["net"])
         else:
             g = torch.Generator().manual_seed(self.seed)
             init_type = self.hparams.get("init", "xavier")

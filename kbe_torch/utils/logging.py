@@ -1,12 +1,16 @@
 """Observability: metrics files and per-stage timing. Port of
-``kbe_tpu/utils/logging.py``'s ``MetricsWriter`` and ``StageTimer``.
+``kbe_tpu/utils/logging.py``'s ``MetricsWriter``, ``StageTimer`` and
+``profiler_trace``.
 
 ``MetricsWriter`` writes every scalar to ``<logdir>/metrics.jsonl``, and to
 TensorBoard too where ``tensorboardX`` is installed, in an auto-incremented
 run directory (``runs/train_0`` -> ``runs/train_1`` if taken).
 ``StageTimer`` times named stages on the host clock and, given a CUDA
 tensor, synchronises its device before it stops the clock, so a stage's
-time includes its device work.
+time includes its device work. ``profiler_trace`` writes a
+``torch.profiler`` trace of its body (the host, and the card where there
+is one) to ``<logdir>/trace.json``, which Perfetto or
+``chrome://tracing`` open.
 """
 
 from __future__ import annotations
@@ -126,3 +130,21 @@ class StageTimer:
 
     def summary(self) -> Dict[str, float]:
         return {k: self.totals[k] / self.counts[k] for k in self.totals}
+
+
+@contextlib.contextmanager
+def profiler_trace(logdir: Optional[str]):
+    """A ``torch.profiler`` trace of the body into
+    ``<logdir>/trace.json``; a no-op for ``logdir=None``."""
+    if logdir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(logdir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

@@ -666,3 +666,25 @@ def test_one_nccl_rank_step_is_the_step_without_a_mesh(cuda, deterministic,
     assert len(got) == len(want)
     for x, y in zip(got, want):
         assert x == y if isinstance(y, dict) else torch.equal(x, y)
+
+
+def test_pipeline_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """Seeded nets at the production mix, saved as a pipeline checkpoint
+    (f32 on the host) and loaded back through
+    ``KenBurnsPipeline.create(checkpoint=...)``: equal frames at 64^2."""
+    import numpy as np
+
+    from kbe_torch.config import EffectConfig
+    from kbe_torch.data import demo_scene_image
+    from kbe_torch.pipeline import KenBurnsPipeline
+    from kbe_torch.train.checkpoint import save_pipeline
+
+    mix = dict(dtype=torch.bfloat16, depth_dtype=torch.float32,
+               effect=EffectConfig(num_steps=3), device=cuda)
+    pipe = KenBurnsPipeline.create(3, **mix)
+    path = save_pipeline(str(tmp_path), pipe.models, 0)
+    loaded = KenBurnsPipeline.create(checkpoint=path, **mix)
+    image = demo_scene_image(64, 64)
+    want = pipe(image)
+    assert (want[0] != want[-1]).any()
+    np.testing.assert_array_equal(loaded(image), want)

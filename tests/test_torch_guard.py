@@ -38,6 +38,9 @@ def test_port_imports_no_jax_and_no_kbe_tpu():
             "import runpy\n"
             "for ex in ('depth_estimation_torch', 'inpainting_torch'):\n"
             "    runpy.run_path(f'examples/{ex}.py', run_name='ex')\n"
+            "for tool in ('make_bench_weights_torch', "
+            "'fidelity_report_torch'):\n"
+            "    runpy.run_path(f'tools/{tool}.py', run_name='tool')\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'kbe_tpu'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -70,6 +73,33 @@ def test_default_device_raises_without_a_gpu(monkeypatch, tmp_path):
                  lambda: preprocess_images(np.zeros((1, 4, 4, 3)))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
+
+
+def test_trained_weights_entry_points_raise_without_a_gpu(monkeypatch,
+                                                        tmp_path):
+    """The bench-weights recipe and the fidelity report run on the card
+    unless asked for the CPU."""
+    from tools.fidelity_report_torch import fidelity_report
+    from tools.make_bench_weights_torch import make_bench_weights
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_bench_weights(1, 1, 1, str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fidelity_report(32, 2, checkpoint=None)
+    assert not os.listdir(tmp_path)
+
+
+def test_profiler_trace_writes_a_trace(tmp_path):
+    """``profiler_trace`` writes its body's trace; ``None`` traces
+    nothing."""
+    from kbe_torch.utils.logging import profiler_trace
+
+    with profiler_trace(None):
+        torch.ones(4).sum()
+    with profiler_trace(str(tmp_path / "trace")):
+        torch.ones(64, 64).matmul(torch.ones(64, 64))
+    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
 
 
 def test_deterministic_training_fixes_the_cublas_workspace(monkeypatch):

@@ -107,6 +107,24 @@ def test_filters_match():
     assert (got != want).sum() <= 3 and want.min() == 0 and want.max() == 1
 
 
+@pytest.mark.parametrize("kind", ["laplacian", "median-3", "median-5"])
+def test_spatial_filter_matches(kind):
+    """The reference's string-typed entry point, as ``kbe_tpu``'s."""
+    x = np.random.default_rng(5).uniform(0, 2, (2, 13, 19, 3)).astype(
+        np.float32)
+    np.testing.assert_allclose(_n(F_t.spatial_filter(_t(x), kind)),
+                               _n(F_j.spatial_filter(x, kind)), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_spatial_filter_refuses_an_unknown_kind():
+    x = np.zeros((1, 4, 4, 1), np.float32)
+    for spatial_filter in (F_t.spatial_filter, F_j.spatial_filter):
+        with pytest.raises(ValueError, match="unknown spatial filter"):
+            spatial_filter(_t(x) if spatial_filter is F_t.spatial_filter
+                           else x, "median-7")
+
+
 @pytest.mark.parametrize("src,dst", [((32, 48), (16, 24)),   # resize_to_max
                                      ((8, 12), (16, 24)),    # upsample2x
                                      ((55, 61), (64, 64)),   # final resize

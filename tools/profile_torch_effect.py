@@ -3,10 +3,12 @@
 
     python tools/profile_torch_effect.py [--size 1024] [--steps 75]
                                          [--mode default] [--tree DIR]
+                                         [--checkpoint PIPELINE_TAR]
 
 Runs the 3D Ken Burns effect of ``kbe_torch`` (production precision mix:
-f32 depth nets, bf16 inpainting nets; seeded random weights; the demo
-scene) once to warm up, then once under ``torch.profiler`` with CPU and
+f32 depth nets, bf16 inpainting nets; seeded random weights, or those of
+a pipeline checkpoint such as ``tools/make_bench_weights_torch.py``
+writes; the demo scene) once to warm up, then once under ``torch.profiler`` with CPU and
 CUDA activities, the front end and the pose loop each under a profiler of
 its own. Prints the wall time of the profiled run split into front end
 and pose loop (host clock around ``torch.cuda.synchronize``), the kernel
@@ -55,6 +57,9 @@ def main() -> int:
     ap.add_argument("--tree", default=None,
                     help="import kbe_torch and chip_smoke from this checkout "
                          "(default: this one), to profile another version")
+    ap.add_argument("--checkpoint", default=None,
+                    help="a pipeline .tar whose nets to run (default: "
+                         "seeded random weights)")
     args = ap.parse_args()
     if args.tree:
         sys.path.insert(0, os.path.abspath(args.tree))
@@ -85,7 +90,8 @@ def main() -> int:
     effect = EffectConfig(num_steps=args.steps, **effect_kw)
     pipe = KenBurnsPipeline.create(
         seed=0, effect=effect, dtype=torch.bfloat16,
-        depth_dtype=torch.float32, device="cuda", **model_kw)
+        depth_dtype=torch.float32, device="cuda", **model_kw,
+        **({"checkpoint": args.checkpoint} if args.checkpoint else {}))
     image = torch.as_tensor(demo_scene_image(size, size), device="cuda")[None]
     zoom = (ZoomSettings.default_dolly(size, size) if effect.dolly
             else ZoomSettings.default_3d(size, size))
@@ -111,7 +117,9 @@ def main() -> int:
                    for p in (front_prof, loop_prof))
     kernels = front + loop
     busy = _busy_us(front) + _busy_us(loop)
-    print(f"{smi}; mode {args.mode}; {size}^2 x {args.steps} frames; "
+    print(f"{smi}; mode {args.mode}; weights "
+          f"{args.checkpoint or 'seeded random'}; {size}^2 x {args.steps} "
+          "frames; "
           f"profiled run "
           f"{wall_us / 1e3:.3f} ms (front end {(t1 - t0) * 1e3:.3f} ms, "
           f"pose loop {(t3 - t2) * 1e3:.3f} ms); device busy "
