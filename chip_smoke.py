@@ -106,8 +106,7 @@ Phases, in order; any failure raises and the script exits non-zero:
          the 1024^2, 75-frame effect at the production mix from it through
          ``KenBurnsPipeline.create(checkpoint=...)``, its launch counts (77
          renders, 75 fills), frames/s, valid points per grid and hole
-         pixels a frame, and the fill of its last frame bit-identical to
-         the plain fill, timed as the row ``discfill/trained``; ``cli/kbe_torch.py``'s ``run --checkpoint`` at
+         pixels a frame; ``cli/kbe_torch.py``'s ``run --checkpoint`` at
          256^2 equal to the loaded pipeline's frames; and
          ``tools/fidelity_report_torch.py``'s production path against its
          spec path at 256^2, 9 steps, mean SSIM >= 0.99;
@@ -125,7 +124,7 @@ chip_smoke as cs; t = cs.training_phase([]); cs.evaluation_phase([], t,
 cs.depth_phase())"`` runs (t), (u) and (v) alone, ``... -c "import
 chip_smoke as cs; cs.maskrcnn_phase([])"`` runs (w) alone, and ``... -c
 "import chip_smoke as cs; cs.dp_phase()"`` runs (x) alone, and ``... -c
-"import chip_smoke as cs; cs.trained_weights_phase([])"`` runs (y) alone.
+"import chip_smoke as cs; cs.trained_weights_phase()"`` runs (y) alone.
 
 Tolerances: none for the kernels. Every kernel is exact (``nms`` against
 its plain loop on the card; ``splat_grad`` too, against the
@@ -686,7 +685,7 @@ def main_path():
 
     # timing on the card: the two halves of the effect, frames left there;
     # then the scene's valid points and the fill's holes
-    from tools.fidelity_report_torch import path_stats
+    from kbe_torch.pipeline.kenburns import path_stats
 
     zoom = ZoomSettings.default_3d(SIZE, SIZE)
     stats = path_stats(pipe.effect_fn(SIZE, SIZE, zoom), pipe.models,
@@ -3028,7 +3027,7 @@ def _nets_equal(a: str, b: str):
         return nets, fa.read() == fb.read()
 
 
-def trained_weights_phase(rows, size: int = SIZE, steps: int = STEPS,
+def trained_weights_phase(size: int = SIZE, steps: int = STEPS,
                           small: int = 256, fid_steps: int = 9,
                           device: str = "cuda", sizes=None):
     """(y) trained weights: ``tools/make_bench_weights_torch.py``'s recipe
@@ -3036,9 +3035,8 @@ def trained_weights_phase(rows, size: int = SIZE, steps: int = STEPS,
     checkpoints; the checkpoint found through ``find_bench_weights`` with
     ``KBE_BENCH_WEIGHTS`` set; the ``size``^2 x ``steps`` effect at the
     production mix from it through ``KenBurnsPipeline.create(checkpoint=)``
-    (launch counts, frames/s, valid points per grid, holes a frame), and on
-    the card the fill on its last frame against the plain fill, timed as a
-    row of ``rows``; ``cli/kbe_torch.py``'s ``run --checkpoint --bf16`` at ``small``^2 equal
+    (launch counts, frames/s, valid points per grid, holes a frame);
+    ``cli/kbe_torch.py``'s ``run --checkpoint --bf16`` at ``small``^2 equal
     to the loaded pipeline's frames; and ``fidelity_report_torch``'s
     production path against its spec path at ``small``^2 x ``fid_steps``,
     mean SSIM at least ``FIDELITY_BAR``. ``sizes``: the recipe's stage
@@ -3052,7 +3050,8 @@ def trained_weights_phase(rows, size: int = SIZE, steps: int = STEPS,
     from kbe_torch.data import demo_scene_image
     from kbe_torch.pipeline import KenBurnsPipeline
     from kbe_torch.train.checkpoint import find_bench_weights
-    from tools.fidelity_report_torch import fidelity_report, path_stats
+    from kbe_torch.pipeline.kenburns import path_stats
+    from tools.fidelity_report_torch import fidelity_report
     from tools.make_bench_weights_torch import make_bench_weights
 
     mix = dict(dtype=torch.bfloat16, depth_dtype=torch.float32)
@@ -3122,22 +3121,6 @@ def trained_weights_phase(rows, size: int = SIZE, steps: int = STEPS,
             f"{stats['hole_pixels_a_frame']:.1f} (most "
             f"{stats['hole_pixels_max_frame']}); frames mean "
             f"{float(frames.mean()):.3f}")
-        if device == "cuda":
-            from kbe_torch.ops.splat import render_posed
-            from kbe_torch.pipeline.kenburns import fill_roi_of
-
-            state = pipe.effect_fn(size, size, zoom).front_end(
-                pipe.models, torch.as_tensor(image_np, device=device)[None])
-            render, existing = render_posed(state.scene, state.poses[-1],
-                                            size, size)
-            fill_phase("(y) fill, the last frame on trained weights", render,
-                       existing, fill_roi_of(size, size, zoom, pipe.effect),
-                       rows, name="discfill/trained")
-            settle(rows[-1], counts)
-            rows[-1]["path"] = (f"(y): {size}^2 x {steps} frames on the "
-                                "recipe's weights; the row times the last "
-                                "frame's fill")
-            del state, render, existing
         del pipe
 
         image = (demo_scene_image(small, small) * 255.0).astype(np.uint8)
@@ -3225,7 +3208,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     dp_phase()
     torch.cuda.empty_cache()
-    trained_weights_phase(more)
+    trained_weights_phase()
     for row in more:
         if "mode" in row:
             mode = row["mode"]

@@ -76,8 +76,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-name", default="3dkbe")
     p.add_argument("--model-path", default=None,
                    help="a .tar to warm-start from (a reference "
-                        "checkpoint, or one the port's trainers or "
-                        "tools/make_bench_weights_torch.py wrote): the "
+                        "checkpoint, or one the port's trainers wrote): the "
                         "disparity net in estimation and refinement (there "
                         "frozen), the inpainting nets in inpainting_ref "
                         "and inpainting")

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import os
+import subprocess
 
 import torch
 
@@ -56,3 +57,16 @@ def deterministic_training(on: bool = True) -> None:
                 f"one of {CUBLAS_DETERMINISTIC} before CUDA starts "
                 f"(it is {conf!r})")
     torch.use_deterministic_algorithms(on)
+
+
+def card_name() -> str:
+    """``nvidia-smi``'s name and power limit of the card, or what it said
+    when it failed."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as err:
+        return f"nvidia-smi failed: {err}"
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else \
+        f"nvidia-smi failed: {out.stderr.strip()}"

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -423,6 +424,53 @@ def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
     effect_fn.front_end = torch.inference_mode()(front_end)
     effect_fn.render_frames = torch.inference_mode()(render_frames)
     return effect_fn
+
+
+def path_stats(fn, models, image, height: int, width: int, zoom, effect):
+    """The timing and scene of one effect ``fn`` (``build_effect_fn``'s)
+    on ``image`` (1, H, W, 3): frames/s, front-end s and pose-loop ms a
+    frame (best of 2 runs, each ended by a synchronise), the cloud's points
+    and valid points per grid, and the hole pixels a frame that the fill
+    sees: zero splat weight inside its ROI, from one ``render_posed`` a
+    pose. Call it after a warm-up run of ``fn``; the hole count renders
+    each pose again."""
+
+    def sync():
+        if image.is_cuda:
+            torch.cuda.synchronize(image.device)
+
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state = fn.front_end(models, image)
+        sync()
+        t1 = time.perf_counter()
+        fn.render_frames(state)
+        sync()
+        t2 = time.perf_counter()
+        runs.append((t2 - t0, t1 - t0, t2 - t1))
+    total, front, loop = min(runs)
+    steps = state.poses.shape[0]
+    grids = state.scene.valid.reshape(-1, height * width)
+    y0, y1, x0, x1 = (fill_roi_of(height, width, zoom, effect)
+                      or (0, height, 0, width))
+    with torch.inference_mode():
+        holes = [int((render_posed(state.scene, state.poses[i], height,
+                                   width)[1][y0:y1, x0:x1] <= 0.0).sum())
+                 for i in range(steps)]
+    return {
+        "frames_per_s": steps / total,
+        "front_end_s": front,
+        "pose_loop_ms_a_frame": loop / steps * 1e3,
+        "runs_s": [r[0] for r in runs],
+        "points": int(grids.numel()),
+        "valid_points": int(state.scene.kept_xyz.shape[0]),
+        "valid_points_per_grid": [int(g.sum()) for g in grids],
+        "valid_share_per_grid": [float(g.mean()) for g in grids],
+        "fill_roi": [y0, y1, x0, x1],
+        "hole_pixels_a_frame": sum(holes) / steps,
+        "hole_pixels_max_frame": max(holes),
+    }
 
 
 @dataclasses.dataclass

@@ -16,8 +16,8 @@ trainer (modules, optimizer moments and step count), which
 ``tools/make_bench_weights_torch.py`` writes.
 
 ``load_pretrained_params`` warm-starts a trainer from the port's own
-checkpoints (a trainer's or a pipeline's) or from a reference torch ``.tar``
-through ``kbe_torch.utils.reference_convert``, told apart by their contents.
+trainer checkpoints or from a reference torch ``.tar`` through
+``kbe_torch.utils.reference_convert``, told apart by their contents.
 
 Every loader keeps ``kbe_tpu``'s rule (``kbe_tpu/train/checkpoint.py:99``):
 a path ending in ``.tar`` is a torch file; anything else is an orbax
@@ -27,6 +27,7 @@ directory, which raises, since reading one needs JAX.
 from __future__ import annotations
 
 import os
+import pickle
 import re
 from typing import Any, Dict, Optional, Tuple
 
@@ -118,26 +119,25 @@ def load_pretrained_params(path: str, kind: str) -> Dict:
       - a checkpoint of the port's trainers (``save_checkpoint``): the
         net's state dict; of a ``(disparity, refine)`` pair the first for
         'disparity' and the second for 'refine', of a ``(G, D)`` pair G's;
-      - a pipeline checkpoint (``save_pipeline``): its net of that kind;
       - a reference torch ``.tar``: Flax-shaped trees converted by
         ``kbe_torch.utils.reference_convert``.
 
-    ``kbe_torch.utils.convert.load_params`` loads either kind of params
-    into the port's modules, as the trainers do."""
+    The port's checkpoints are read with ``weights_only=True``; only a file
+    that is not one goes on to the reference converter, which needs the
+    full unpickler. ``kbe_torch.utils.convert.load_params`` loads either
+    kind of params into the port's modules, as the trainers do."""
     if kind not in ("disparity", "refine", "inpaint"):
         raise ValueError(f"unknown kind {kind!r}")
-    blob = _torch_file(path, weights_only=False)
+    try:
+        blob = _torch_file(path)
+    except pickle.UnpicklingError:
+        blob = None
     if isinstance(blob, dict) and set(blob) == {"state", "step"}:
         states = blob["state"]
         state = states[1 if kind == "refine" and len(states) == 2 else 0]
         if kind == "inpaint":
             return {"context": state["context"], "net": state["net"]}
         return state["net"]
-    if isinstance(blob, dict) and set(blob) == {"pipeline", "step"}:
-        nets = blob["pipeline"]
-        if kind == "inpaint":
-            return {"context": nets["context"], "net": nets["inpaint"]}
-        return nets[kind]
     from kbe_torch.utils import reference_convert as rc
 
     if kind == "disparity":
@@ -148,10 +148,9 @@ def load_pretrained_params(path: str, kind: str) -> Dict:
     return {"context": ctx, "net": net}
 
 
-def save_pipeline(directory: str, models, step: int,
-                  name: str = "pipeline") -> str:
+def save_pipeline(directory: str, models, step: int) -> str:
     """Write the nets of ``models`` (``PipelineModels``; the dual-net pair
-    where it is there) to ``<directory>/<name>-<step>.tar`` as f32 state
+    where it is there) to ``<directory>/pipeline-<step>.tar`` as f32 state
     dicts on the CPU; returns the path."""
     nets = {}
     for field, net in zip(models._fields, models):
@@ -159,7 +158,7 @@ def save_pipeline(directory: str, models, step: int,
             nets[field] = {k: (v.detach().to("cpu", torch.float32)
                                if v.is_floating_point() else v.cpu())
                            for k, v in net.state_dict().items()}
-    return _save(directory, name, step, {"pipeline": nets,
+    return _save(directory, "pipeline", step, {"pipeline": nets,
                                          "step": int(step)})
 
 

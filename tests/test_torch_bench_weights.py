@@ -13,9 +13,11 @@ frames bit for bit. The recipe's constants are held to
 ``tools/make_bench_weights.py``'s, read with ``ast``.
 """
 
+import argparse
 import ast
 import math
 import os
+import pickle
 
 import numpy as np
 import pytest
@@ -233,12 +235,18 @@ def test_load_pretrained_params_takes_the_ports_checkpoints(tmp_path,
         load_pretrained_params(ref, "semantics")
 
 
-def test_load_pretrained_params_takes_a_pipeline_checkpoint(saved):
-    _, models, path = saved
-    sd = load_pretrained_params(path, "inpaint")
-    for key, net in (("context", models.context), ("net", models.inpaint)):
-        want = net.state_dict()
-        assert all(torch.equal(sd[key][k], want[k]) for k in want)
+def test_load_pretrained_params_unpickles_only_reference_files(tmp_path):
+    """A reference ``.tar`` that the restricted unpickler refuses (numpy
+    arrays beside an ``argparse`` namespace, as released files hold) goes on
+    to ``reference_convert``; the port's own checkpoints never need the full
+    unpickler."""
+    ref = str(tmp_path / "refine_ref.tar")
+    torch.save({"args": argparse.Namespace(lr=1e-4), "nb_iter": 7,
+                "model_state_dict": _refine_sd()}, ref)
+    with pytest.raises(pickle.UnpicklingError):
+        torch.load(ref, weights_only=True)
+    _assert_trees_equal(load_pretrained_params(ref, "refine"),
+                        rc.convert_refine(ref))
 
 
 def _jax_recipe():

@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -85,70 +84,6 @@ def compare(frames, spec):
     return row
 
 
-def path_stats(fn, models, image, height: int, width: int, zoom, effect):
-    """The timing and scene of one effect ``fn`` (``build_effect_fn``'s)
-    on ``image`` (1, H, W, 3): frames/s, front-end s and pose-loop ms a
-    frame (best of 2 runs, each ended by a synchronise), the cloud's points
-    and valid points per grid, and the hole pixels a frame that the fill
-    sees: zero splat weight inside its ROI, from one ``render_posed`` a
-    pose. Call it after a warm-up run of ``fn``; the hole count renders
-    each pose again."""
-    import torch
-
-    from kbe_torch.ops.splat import render_posed
-    from kbe_torch.pipeline.kenburns import fill_roi_of
-
-    def sync():
-        if image.is_cuda:
-            torch.cuda.synchronize(image.device)
-
-    runs = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        state = fn.front_end(models, image)
-        sync()
-        t1 = time.perf_counter()
-        fn.render_frames(state)
-        sync()
-        t2 = time.perf_counter()
-        runs.append((t2 - t0, t1 - t0, t2 - t1))
-    total, front, loop = min(runs)
-    steps = state.poses.shape[0]
-    grids = state.scene.valid.reshape(-1, height * width)
-    y0, y1, x0, x1 = (fill_roi_of(height, width, zoom, effect)
-                      or (0, height, 0, width))
-    with torch.inference_mode():
-        holes = [int((render_posed(state.scene, state.poses[i], height,
-                                   width)[1][y0:y1, x0:x1] <= 0.0).sum())
-                 for i in range(steps)]
-    return {
-        "frames_per_s": steps / total,
-        "front_end_s": front,
-        "pose_loop_ms_a_frame": loop / steps * 1e3,
-        "runs_s": [r[0] for r in runs],
-        "points": int(grids.numel()),
-        "valid_points": int(state.scene.kept_xyz.shape[0]),
-        "valid_points_per_grid": [int(g.sum()) for g in grids],
-        "valid_share_per_grid": [float(g.mean()) for g in grids],
-        "fill_roi": [y0, y1, x0, x1],
-        "hole_pixels_a_frame": sum(holes) / steps,
-        "hole_pixels_max_frame": max(holes),
-    }
-
-
-def card_name() -> str:
-    """``nvidia-smi``'s name and power limit of the card, or what it said
-    when it failed."""
-    try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True,
-                             text=True, timeout=60)
-    except (OSError, subprocess.TimeoutExpired) as err:
-        return f"nvidia-smi failed: {err}"
-    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else \
-        f"nvidia-smi failed: {out.stderr.strip()}"
-
-
 def fidelity_report(size: int = 512, n_steps: int = 75, checkpoint="find",
                     device=None, log=print):
     """The report as a dict. ``checkpoint``: a pipeline ``.tar``, None for
@@ -159,8 +94,9 @@ def fidelity_report(size: int = 512, n_steps: int = 75, checkpoint="find",
 
     from kbe_torch.config import CameraConfig, EffectConfig, ZoomSettings
     from kbe_torch.data import demo_scene_image
-    from kbe_torch.device import resolve_device
-    from kbe_torch.pipeline.kenburns import build_effect_fn, create_models
+    from kbe_torch.device import card_name, resolve_device
+    from kbe_torch.pipeline.kenburns import build_effect_fn, create_models, \
+        path_stats
     from kbe_torch.train.checkpoint import find_bench_weights, \
         load_pipeline_params
 

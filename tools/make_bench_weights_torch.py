@@ -159,7 +159,7 @@ def main() -> int:
 
     import torch
 
-    from tools.fidelity_report_torch import card_name
+    from kbe_torch.device import card_name
 
     path, report = make_bench_weights(
         int(os.environ.get("KBE_BW_STEPS_DEPTH", "300")),
