@@ -34,9 +34,11 @@ Phases, in order; any failure raises and the script exits non-zero:
          fill, one launch each;
      (g) the inference modes at 1024^2, 9 steps, production precision mix,
          through ``KenBurnsPipeline.__call__``: dolly, 2D, pretrained
-         refine, partial conv, dual net, routed + whole-frame fill, delta,
-         and the one-phase and fused fill schedules; frames and launch
-         counts checked, the pose loop timed several times;
+         refine, partial conv, dual net, routed + the spec's whole-frame
+         fill (``fill_impl='xla'``: the plain fill, no ``discfill``
+         launch), delta, and the one-phase and fused fill schedules;
+         frames and launch counts checked, the pose loop timed several
+         times;
      (h) the ``'routed'`` effect against the ``'auto'`` one, same models,
          and two runs of the ``'auto'`` effect: equal frames;
      (i) ``load_scene`` and ``autozoom`` on the card (256 candidates), the
@@ -110,6 +112,15 @@ Phases, in order; any failure raises and the script exits non-zero:
          256^2 equal to the loaded pipeline's frames; and
          ``tools/fidelity_report_torch.py``'s production path against its
          spec path at 256^2, 9 steps, mean SSIM >= 0.99;
+     (z) the spec path (``splat_method='scatter'``, ``fill_impl='xla'``,
+         f32 nets) at 256^2, 9 steps, seeded random weights: no
+         hand-written kernel launched; the production path with the same
+         f32 nets against it, mean SSIM >= 0.999; then
+         ``tools/profile_frontend_torch.py``'s and
+         ``tools/profile_frame_torch.py``'s functions once on that scene,
+         their stages' hand-written launches against the main path's
+         counts (a C=68 render in each bootstrap step's ``splat68``; a
+         C=4 render in ``splat`` and a ``discfill`` in ``fill`` a frame);
   7. the ``{"kernels": [...]}`` line, then the device line last. A row's
      ``launches`` are those of the run named in its ``path``, counted from
      zero just before that run. ``ms`` is the call's time (CUDA events
@@ -124,7 +135,10 @@ chip_smoke as cs; t = cs.training_phase([]); cs.evaluation_phase([], t,
 cs.depth_phase())"`` runs (t), (u) and (v) alone, ``... -c "import
 chip_smoke as cs; cs.maskrcnn_phase([])"`` runs (w) alone, and ``... -c
 "import chip_smoke as cs; cs.dp_phase()"`` runs (x) alone, and ``... -c
-"import chip_smoke as cs; cs.trained_weights_phase()"`` runs (y) alone.
+"import chip_smoke as cs; cs.trained_weights_phase()"`` runs (y) alone,
+and ``... -c "import chip_smoke as cs; cs.spec_phase({})"`` runs (z)
+alone (with no main-path counts to hold the tools' launches to, as on the
+CPU: ``cs.spec_phase({}, size=32, steps=3, device="cpu")``).
 
 Tolerances: none for the kernels. Every kernel is exact (``nms`` against
 its plain loop on the card; ``splat_grad`` too, against the
@@ -965,7 +979,9 @@ def mode_phases(size: int = SIZE, device: str = "cuda"):
         frames = pipe(image_np)
         wall = time.perf_counter() - t0
         counts = launch_counts()
-        want = dict(splat_counts(4, MODE_STEPS), discfill=MODE_STEPS)
+        want = splat_counts(4, MODE_STEPS)
+        if effect.fill_impl != "xla":   # 'xla' is the spec: the plain fill
+            want["discfill"] = MODE_STEPS
         if boot:
             want.update(splat_counts(68, boot))
         if on_card:
@@ -3151,6 +3167,93 @@ def trained_weights_phase(size: int = SIZE, steps: int = STEPS,
                              f"{fid['mean_ssim']} < {FIDELITY_BAR}")
 
 
+SPEC_SIZE, SPEC_STEPS = 256, 9
+SPEC_BAR = 0.999            # production kernels with f32 nets vs the spec
+
+
+def spec_phase(main_counts, size: int = SPEC_SIZE, steps: int = SPEC_STEPS,
+               device: str = "cuda"):
+    """(z) the spec path launches no hand-written kernel; the production
+    path with the same f32 nets is held to it (mean SSIM at least
+    ``SPEC_BAR``); the layer tools' stages launch the main path's kernels
+    where the main path does: ``main_counts`` are the main path's counts
+    over its ``STEPS`` frames (empty on the CPU)."""
+    import torch
+    from kbe_torch.config import EffectConfig
+    from kbe_torch.pipeline.kenburns import build_effect_fn
+    from tools.bench_scene_torch import bench_scene
+    from tools.fidelity_report_torch import compare
+    from tools.profile_frame_torch import profile_frame
+    from tools.profile_frontend_torch import profile_frontend
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    scene = bench_scene(size, steps, None, "all_f32", device=device)
+    spec_fn = build_effect_fn(size, size, scene["zoom"], scene["camera"],
+                              EffectConfig(num_steps=steps,
+                                           splat_method="scatter",
+                                           fill_impl="xla"), device=device)
+    clear_launches()
+    spec = spec_fn(scene["models"], scene["image"]).cpu().numpy()
+    if launch_counts():
+        raise AssertionError(f"(z) the spec path launched hand-written "
+                             f"kernels: {launch_counts()}")
+    clear_launches()
+    prod = scene["fn"](scene["models"], scene["image"]).cpu().numpy()
+    want = ({**splat_counts(4, steps), **splat_counts(68, 2),
+             "discfill": steps} if on_card else {})
+    expect_counts("(z) production path, f32 nets", want)
+    row = compare(prod, spec)
+    log(f"(z) spec path (scatter + xla, f32 nets) at {size}^2 x {steps}, "
+        f"{scene['weights']}: no hand-written kernel launched; production "
+        f"kernels with the same nets against it: mean SSIM "
+        f"{row['mean_ssim']:.6f}, min {row['min_ssim']:.6f} (frame "
+        f"{row['argmin_ssim_frame']}), max abs diff "
+        f"{row['max_abs_diff_uint8']:.0f} of 255, "
+        f"{row['pixels_diff_gt8_per_frame']:.1f} pixels a frame > 8")
+    if row["mean_ssim"] < SPEC_BAR:
+        raise AssertionError(f"(z) production against spec: mean SSIM "
+                             f"{row['mean_ssim']} < {SPEC_BAR}")
+
+    boot = {k: v for k, v in main_counts.items() if k.endswith("/c68")}
+    frame = {k: v / STEPS for k, v in main_counts.items() if k not in boot}
+    front = profile_frontend(scene=scene, reps=1)
+    got = {}
+    for r in front["stages"]:
+        if r["kernels"] and not r["stage"].endswith("/splat68"):
+            raise AssertionError(f"(z) front-end stage {r['stage']} "
+                                 f"launched {r['kernels']}")
+        for k, v in r["kernels"].items():
+            got[k] = got.get(k, 0) + v
+    if got != boot:
+        raise AssertionError(f"(z) front-end stages launched {got}, the "
+                             f"main path's bootstrap {boot}")
+    frames = profile_frame(scene=scene, reps=1)
+    got = {}
+    for r in frames["stages"]:
+        kernels = r.get("kernels_a_frame", {})   # none for the final wait
+        if kernels and r["stage"] not in ("splat", "fill"):
+            raise AssertionError(f"(z) frame stage {r['stage']} launched "
+                                 f"{kernels}")
+        got.update(kernels)
+    if got != frame:
+        raise AssertionError(f"(z) frame stages launched {got} a frame, "
+                             f"the main path {frame}")
+    if on_card:   # device columns are None where a profile lost kernels
+        log(f"(z) tools at {size}^2: front-end stages sum "
+            f"{front['sum_host_ms']:.3f} ms against the front end's "
+            f"{front['front_end_ms']:.3f} ({front['sum_over_front_end']:.4f}"
+            f"), device ms {front['sum_device_ms']}, launches "
+            f"{front['sum_launches']}; frame stages sum "
+            f"{frames['sum_host_ms_a_frame']:.4f} ms a frame against the "
+            f"loop's {frames['render_frames_ms_a_frame']:.4f} "
+            f"({frames['sum_over_render_frames']:.4f}), launches a frame "
+            f"{frames['sum_launches_a_frame']}; their hand-written launches "
+            f"are the main path's")
+    log(f"(z) {time.perf_counter() - t0:.1f} s")
+    return row
+
+
 def main() -> int:
     # cuBLAS is deterministic under torch.use_deterministic_algorithms only
     # with a fixed workspace, which must be set before its first call
@@ -3209,6 +3312,7 @@ def main() -> int:
     dp_phase()
     torch.cuda.empty_cache()
     trained_weights_phase()
+    spec_phase(counts)
     for row in more:
         if "mode" in row:
             mode = row["mode"]

@@ -38,7 +38,9 @@ one raises.
 kernel generation behind each, all computing this one function.
 
 The wrappers below take the plain path only for CPU tensors; a CUDA tensor
-launches the kernel or raises. Each wrapper counts the kernels it launches
+launches the kernel or raises. ``render_pointcloud_plain`` is the spec
+itself: the plain passes on every device, which the effect renders with
+under ``splat_method='scatter'``. Each wrapper counts the kernels it launches
 in ``LAUNCHES``, keyed ``"<kernel>/c<C>"``: a render on the card launches
 ``fill``, ``zee``, ``degrid``, ``count``, ``place`` and ``sum`` once each
 (a cloud of no points only ``fill``, ``degrid`` and ``sum``), and its
@@ -481,6 +483,12 @@ def _render(xyz, payload, valid, pose, height: int, width: int):
         acc = _accumulate(lib, stream, xyz, valid, payload, pose, zee,
                           height, width, True, counts)
         return acc[:, :c], acc[:, c:], zee
+    return _render_plain(xyz, payload, valid, pose, height, width)
+
+
+def _render_plain(xyz, payload, valid, pose, height: int, width: int):
+    """``_render`` through the plain passes, on any device."""
+    c = payload.shape[1]
     zee = degrid_plain(zee_plain(xyz, valid, pose, height, width))
     acc = accumulate_plain(xyz, valid, payload, pose, zee, height, width)
     return acc[:, :c] / (acc[:, c:] + 1e-7), acc[:, c:], zee
@@ -548,19 +556,44 @@ def make_pose(shift: torch.Tensor, focal, baseline) -> torch.Tensor:
                         f * baseline]).to(torch.float32).contiguous()
 
 
+def _each_item(render, xyz, data, height: int, width: int, focal, baseline,
+               valid):
+    zero = torch.zeros(3, dtype=torch.float32, device=xyz.device)
+    pose = make_pose(zero, focal, baseline)
+    outs = [render(xyz[b].float().contiguous(), data[b].float().contiguous(),
+                   None if valid is None else valid[b].float().contiguous(),
+                   pose, height, width)
+            for b in range(xyz.shape[0])]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
 def render_pointcloud(xyz: torch.Tensor, data: torch.Tensor, height: int,
                       width: int, focal, baseline,
                       valid: Optional[torch.Tensor] = None):
     """``kbe_tpu.ops.splat.render_pointcloud``: (B, N, 3) points, (B, N, C)
     payload, optional (B, N) mask -> ((B, H, W, C), (B, H, W, 1))."""
-    zero = torch.zeros(3, dtype=torch.float32, device=xyz.device)
-    pose = make_pose(zero, focal, baseline)
-    outs = [splat(xyz[b].float().contiguous(), data[b].float().contiguous(),
-                  None if valid is None else valid[b].float().contiguous(),
-                  pose, height, width)
-            for b in range(xyz.shape[0])]
-    return (torch.stack([o[0] for o in outs]),
-            torch.stack([o[1] for o in outs]))
+    return _each_item(splat, xyz, data, height, width, focal, baseline,
+                      valid)
+
+
+def _splat_plain(xyz, payload, valid, pose, height: int, width: int):
+    rendered, existing, _ = _render_plain(xyz, payload, valid, pose, height,
+                                          width)
+    return (rendered.reshape(height, width, -1),
+            existing.reshape(height, width, 1))
+
+
+def render_pointcloud_plain(xyz: torch.Tensor, data: torch.Tensor,
+                            height: int, width: int, focal, baseline,
+                            valid: Optional[torch.Tensor] = None):
+    """``render_pointcloud`` through the plain passes on every device: the
+    spec that ``kbe_tpu`` renders with ``splat_method='scatter'`` (its XLA
+    scatter, no kernel). On the card ``accumulate_plain``'s ``index_add_``
+    adds with atomics in no fixed order, so its sums may differ from the
+    kernels' (and from run to run) in the last bit."""
+    return _each_item(_splat_plain, xyz, data, height, width, focal,
+                      baseline, valid)
 
 
 def render_grids(xyz: torch.Tensor, data: torch.Tensor, height: int,

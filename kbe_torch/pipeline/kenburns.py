@@ -14,10 +14,13 @@ Stages, as in the JAX package:
 
 ``EffectConfig.splat_method`` and ``fill_impl`` select the entry point that
 the JAX package selects with them (see ``build_effect_fn``). On CUDA tensors
-every one of them runs the hand-written kernels of ``kbe_torch/ops/csrc``;
-on CPU tensors their plain versions. The kernels never drop a point, so
-``splat_overflow_chunks`` and ``splat_fallback`` have nothing to choose and
-``with_stats`` reports ``splat_overflow_frames = 0``.
+every one of them runs the hand-written kernels of ``kbe_torch/ops/csrc``,
+but for the two that name JAX's XLA specs, ``splat_method='scatter'`` and
+``fill_impl='xla'``: those run the plain versions on every device, as JAX
+runs no kernel for them. On CPU tensors everything runs the plain versions.
+The kernels never drop a point, so ``splat_overflow_chunks`` and
+``splat_fallback`` have nothing to choose and ``with_stats`` reports
+``splat_overflow_frames = 0``.
 """
 
 from __future__ import annotations
@@ -35,8 +38,7 @@ from kbe_torch.device import disable_tf32, resolve_device
 from kbe_torch.models import (ContextNet, Disparity, Inpaint, PartialInpaint,
                               Refine, RefinePretrained, Semantics)
 from kbe_torch.models.layers import init_params
-from kbe_torch.ops.discfill import fill_disocclusion, \
-    fill_disocclusion_pallas
+from kbe_torch.ops.discfill import fill_disocclusion_pallas, fill_plain
 from kbe_torch.ops.geometry import (apply_shift, depth_range,
                                     depth_to_points, disparity_to_depth,
                                     interpolate_window, solve_shift,
@@ -45,7 +47,7 @@ from kbe_torch.ops.legacy import render_grids_fast_delta, \
     render_grids_pallas
 from kbe_torch.ops.resize import crop_rect_subpix, resize_bilinear, \
     resize_to_max
-from kbe_torch.ops.splat import prepare_scene, render_pointcloud, \
+from kbe_torch.ops.splat import prepare_scene, render_pointcloud_plain, \
     render_posed
 from kbe_torch.ops.splat_routed import render_grids_fast
 from kbe_torch.pipeline.inpaint_flow import InpaintModels, \
@@ -213,6 +215,92 @@ def fill_roi_of(height: int, width: int, zoom: ZoomSettings,
     return (ry0, ry1, rx0, rx1)
 
 
+def depth_grid(image: torch.Tensor, disparity: torch.Tensor,
+               camera: CameraConfig, margin: float):
+    """The end of the depth stage: the refined ``disparity`` (1, H, W, 1)
+    shifted to >= 0 where it dips below 0 and scaled to a maximum of the
+    baseline, the cloud's first grid (xyz (H, W, 3), data (H, W, 5) = rgb,
+    disparity, depth; valid (H, W)) and the ``depth_range`` anchor.
+    Returns (disparity, grid, anchor)."""
+    height, width = image.shape[1], image.shape[2]
+    disparity = disparity - torch.clamp(disparity.min(), max=0.0)
+    disparity = disparity / disparity.max() * camera.baseline
+    depth = disparity_to_depth(disparity, camera.focal, camera.baseline)
+    points = depth_to_points(depth[..., 0], camera.focal)
+    anchor = depth_range(depth[0, ..., 0], margin)
+    grid = (points[0], torch.cat([image[0], disparity[0], depth[0]], dim=-1),
+            torch.ones((height, width), device=image.device))
+    return disparity, grid, anchor
+
+
+def inpainted_grid(inpainted, height: int, width: int):
+    """A bootstrap step's grid of ``pointcloud_inpainting``'s result: (xyz,
+    data, valid), valid where the net reports no coverage."""
+    return (inpainted["points"].reshape(height, width, 3),
+            torch.cat([inpainted["image"][0], inpainted["disparity"][0],
+                       inpainted["depth"][0]], dim=-1),
+            (inpainted["existing"][0, ..., 0] == 0.0).float())
+
+
+def inpaint_models(models: "PipelineModels",
+                   partial_inpainting: bool) -> InpaintModels:
+    """The nets of the bootstrap as ``pointcloud_inpainting`` calls them:
+    a grid-net ``Inpaint`` hands its input mask back as ``existing``."""
+
+    def net_apply(net):
+        if partial_inpainting:
+            return net
+
+        def apply(data, masks):
+            return net(data, masks) + (masks,)
+
+        return apply
+
+    return InpaintModels(
+        context=models.context, net=net_apply(models.inpaint),
+        depth_net=(net_apply(models.inpaint_depth)
+                   if models.inpaint_depth is not None else None),
+        context_depth=models.context_depth)
+
+
+def scene_of(grids):
+    """(scene, cloud_xyz) of the cloud's grids [(xyz, data, valid), ...]:
+    the posed renderer's scene of rgb + depth, and the raw stacked
+    xyz."""
+    cloud_xyz = torch.stack([g[0] for g in grids])
+    cloud_data = torch.stack([g[1] for g in grids])
+    frame_data = torch.cat([cloud_data[..., 0:3], cloud_data[..., 4:5]],
+                           dim=-1)
+    scene = prepare_scene(cloud_xyz, frame_data,
+                          torch.stack([g[2] for g in grids]))
+    return scene, cloud_xyz
+
+
+def effect_poses(anchor, zoom: ZoomSettings, camera: CameraConfig,
+                 effect: EffectConfig, width: int, height: int,
+                 device) -> torch.Tensor:
+    """The (T, 5) poses (shift, focal, focal * baseline) of the
+    ``effect.num_steps`` steps, from the ``depth_range`` anchor."""
+    steps = np.linspace(0.0, 1.0, effect.num_steps)
+    focals = np.array([_step_focal(s, zoom, camera, effect.dolly)
+                       for s in steps], np.float32)
+    steps_t = torch.as_tensor(steps.astype(np.float32), device=device)
+    focals_t = torch.as_tensor(focals, device=device)
+    shifts = compute_pose_shift(steps_t, focals_t, anchor, zoom, camera,
+                                width, height)
+    return torch.cat([shifts, focals_t[:, None],
+                      (focals_t * camera.baseline)[:, None]],
+                     dim=1).contiguous()
+
+
+def bootstrap_method(splat_method: str) -> str:
+    """The bootstrap's renderer for a frame loop's ``splat_method``."""
+    if splat_method == "auto":
+        return "banded"
+    return (splat_method if splat_method in ("scatter", "banded")
+            else "routed")
+
+
 class EffectState(NamedTuple):
     """What the front end hands the pose loop. ``scene`` is the cloud with
     x, y pre-scaled for the posed renderer; ``cloud_xyz`` (G, H, W, 3) is
@@ -245,16 +333,22 @@ def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
     ``'banded'`` the posed renderer (``render_posed``, the shift applied in
     the kernel); ``'routed'`` ``apply_shift`` then ``render_grids_fast``;
     ``'delta'`` and ``'pallas'`` the entry points of ``ops/legacy``;
-    ``'scatter'`` ``render_pointcloud``. The bootstrap renders through
-    ``'scatter'`` or ``'banded'`` when the frame loop does, else through
-    ``'routed'``. ``effect.fill_impl``: ``'pallas'`` is
-    ``fill_disocclusion_pallas`` inside the ROI, ``'xla'``
-    ``fill_disocclusion`` over the whole frame. Any other value raises
-    ``ValueError``.
+    ``'scatter'`` ``render_pointcloud_plain``. The bootstrap renders
+    through ``'scatter'`` or ``'banded'`` when the frame loop does, else
+    through ``'routed'``. ``effect.fill_impl``: ``'pallas'`` is
+    ``fill_disocclusion_pallas`` inside the ROI, ``'xla'`` ``fill_plain``
+    over the whole frame. ``'scatter'`` and ``'xla'`` name ``kbe_tpu``'s XLA
+    specs, which run no kernel, so they run the plain versions on every
+    device: the spec path launches no hand-written kernel on the card. Any
+    other value raises ``ValueError``.
 
     The returned function also carries its two halves: ``front_end(models,
     image) -> state`` (depth, bootstrap, cloud, poses) and
-    ``render_frames(state) -> frames`` (the pose loop), for timing.
+    ``render_frames(state) -> frames`` (the pose loop), for timing; and
+    ``frame_stages``, the pose loop's body as named steps, each taking the
+    one before's output: ``splat`` (state, pose) -> (render, weight),
+    ``fill`` (render, weight) -> filled, ``quantise``, ``crop``, ``resize``
+    and ``round`` (the uint8 frame).
     """
     dev = resolve_device(device)
     if height % 4 or width % 4:
@@ -267,6 +361,7 @@ def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
     if effect.fill_impl not in FILL_IMPLS:
         raise ValueError(f"fill_impl must be one of {FILL_IMPLS}, got "
                          f"{effect.fill_impl!r}")
+    bootstrap_splat = bootstrap_method(splat)
     if splat == "auto":
         splat = "banded"
     margin = displacement_margin(zoom, camera, effect, width, height)
@@ -275,13 +370,9 @@ def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
             f"trajectory displacement bound {margin}px exceeds "
             f"max_pallas_margin={effect.max_pallas_margin}; use "
             "splat_method='routed'")
-    bootstrap_splat = splat if splat in ("scatter", "banded") else "routed"
     if dev.type == "cuda":
         disable_tf32()
 
-    steps = np.linspace(0.0, 1.0, effect.num_steps)
-    focals = np.array([_step_focal(s, zoom, camera, effect.dolly)
-                       for s in steps], np.float32)
     max_cw = max(zoom.src.crop_width, zoom.dst.crop_width)
     max_ch = max(zoom.src.crop_height, zoom.dst.crop_height)
     roi = fill_roi_of(height, width, zoom, effect)
@@ -296,15 +387,6 @@ def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
         if models.inpaint_depth is not None and models.context_depth is None:
             raise ValueError("inpaint_depth requires context_depth")
 
-    def net_apply(net):
-        if partial_inpainting:
-            return net
-
-        def apply(data, masks):
-            return net(data, masks) + (masks,)
-
-        return apply
-
     def front_end(models: PipelineModels, image: torch.Tensor):
         check_models(models)
         resized = resize_to_max(image, max(height, width) // 2)
@@ -314,21 +396,11 @@ def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
             # 2D KBE: a flat scene
             disp_half = torch.ones_like(disp_half)
         disparity = models.refine(image, disp_half).float()
-        disparity = disparity - torch.clamp(disparity.min(), max=0.0)
-        disparity = disparity / disparity.max() * camera.baseline
-        depth = disparity_to_depth(disparity, camera.focal, camera.baseline)
-        points = depth_to_points(depth[..., 0], camera.focal)
-        anchor = depth_range(depth[0, ..., 0], effect.depth_range_margin)
-
-        grids_xyz = [points[0]]
-        grids_data = [torch.cat([image[0], disparity[0], depth[0]], dim=-1)]
-        grids_valid = [torch.ones((height, width), device=dev)]
+        disparity, grid, anchor = depth_grid(image, disparity, camera,
+                                             effect.depth_range_margin)
+        grids = [grid]
         if effect.inpaint and not effect.dolly:
-            flow = InpaintModels(
-                context=models.context, net=net_apply(models.inpaint),
-                depth_net=(net_apply(models.inpaint_depth)
-                           if models.inpaint_depth is not None else None),
-                context_depth=models.context_depth)
+            flow = inpaint_models(models, partial_inpainting)
             for s in (0.0, 1.0):
                 shift = compute_pose_shift(s, camera.focal, anchor, zoom,
                                            camera, width, height)
@@ -336,27 +408,10 @@ def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
                     flow, image, disparity, effect.inpaint_overshoot * shift,
                     camera, camera.focal, effect.validity_threshold,
                     splat_method=bootstrap_splat)
-                grids_xyz.append(inp["points"].reshape(height, width, 3))
-                grids_data.append(torch.cat(
-                    [inp["image"][0], inp["disparity"][0], inp["depth"][0]],
-                    dim=-1))
-                grids_valid.append(
-                    (inp["existing"][0, ..., 0] == 0.0).float())
-        cloud_xyz = torch.stack(grids_xyz)
-        cloud_data = torch.stack(grids_data)
-        frame_data = torch.cat([cloud_data[..., 0:3], cloud_data[..., 4:5]],
-                               dim=-1)
-        scene = prepare_scene(cloud_xyz, frame_data,
-                              torch.stack(grids_valid))
-
-        steps_t = torch.as_tensor(steps.astype(np.float32), device=dev)
-        focals_t = torch.as_tensor(focals, device=dev)
-        shifts = compute_pose_shift(steps_t, focals_t, anchor, zoom, camera,
-                                    width, height)
-        poses = torch.cat([shifts, focals_t[:, None],
-                           (focals_t * camera.baseline)[:, None]],
-                          dim=1).contiguous()
-        return EffectState(scene, cloud_xyz, poses)
+                grids.append(inpainted_grid(inp, height, width))
+        scene, cloud_xyz = scene_of(grids)
+        return EffectState(scene, cloud_xyz, effect_poses(
+            anchor, zoom, camera, effect, width, height, dev))
 
     def splat_frame(state: EffectState, pose: torch.Tensor):
         """One pose's (render (H, W, 4), weight (H, W, 1))."""
@@ -381,32 +436,43 @@ def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
                 xyz, data, height, width, focal, camera.baseline,
                 valid=valid, margin=margin)
         else:
-            render, weight = render_pointcloud(
+            # the spec: the plain passes on every device
+            render, weight = render_pointcloud_plain(
                 xyz.reshape(1, -1, 3), data.reshape(1, -1, data.shape[-1]),
                 height, width, focal, camera.baseline,
                 valid=valid.reshape(1, -1))
         return render[0], weight[0]
 
-    def render_frame(state: EffectState, pose: torch.Tensor) -> torch.Tensor:
-        render, weight = splat_frame(state, pose)
+    def fill_frame(render: torch.Tensor, weight: torch.Tensor):
         render_depth = render[..., 3:4] * (weight > 0.0)
         if effect.fill_impl == "xla":
-            filled = fill_disocclusion(render[None], render_depth[None],
-                                       effect.fill_march_steps)[0]
-        else:
-            filled = fill_disocclusion_pallas(
-                render[None], render_depth[None], effect.fill_march_steps,
-                phase1_steps=effect.fill_march_phase1, roi=roi,
-                phase0_steps=effect.fill_phase0,
-                phase0_gate=effect.fill_phase0_gate)[0]
-        # quantise BEFORE the crop, round after the crop and the resize,
-        # as the reference's uint8 cv2 chain does
-        rgb = torch.floor(torch.clamp(filled[..., 0:3] * 255.0, 0.0, 255.0))
+            # the spec: the plain fill over the whole frame on every device
+            return fill_plain(render, render_depth, effect.fill_march_steps)
+        return fill_disocclusion_pallas(
+            render[None], render_depth[None], effect.fill_march_steps,
+            phase1_steps=effect.fill_march_phase1, roi=roi,
+            phase0_steps=effect.fill_phase0,
+            phase0_gate=effect.fill_phase0_gate)[0]
+
+    # quantise BEFORE the crop, round after the crop and the resize, as the
+    # reference's uint8 cv2 chain does
+    def quantise(filled: torch.Tensor) -> torch.Tensor:
+        return torch.floor(torch.clamp(filled[..., 0:3] * 255.0, 0.0, 255.0))
+
+    def crop(rgb: torch.Tensor) -> torch.Tensor:
         patch = crop_rect_subpix(rgb, max_cw, max_ch, width / 2.0,
                                  height / 2.0)
-        patch = torch.clamp(torch.round(patch), 0.0, 255.0)
-        out = resize_bilinear(patch[None], height, width)[0]
+        return torch.clamp(torch.round(patch), 0.0, 255.0)
+
+    def resize(patch: torch.Tensor) -> torch.Tensor:
+        return resize_bilinear(patch[None], height, width)[0]
+
+    def to_uint8(out: torch.Tensor) -> torch.Tensor:
         return torch.clamp(torch.round(out), 0.0, 255.0).to(torch.uint8)
+
+    def render_frame(state: EffectState, pose: torch.Tensor) -> torch.Tensor:
+        filled = fill_frame(*splat_frame(state, pose))
+        return to_uint8(resize(crop(quantise(filled))))
 
     def render_frames(state: EffectState) -> torch.Tensor:
         # poses are independent; they run one after another only to bound
@@ -423,6 +489,9 @@ def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
 
     effect_fn.front_end = torch.inference_mode()(front_end)
     effect_fn.render_frames = torch.inference_mode()(render_frames)
+    effect_fn.frame_stages = (("splat", splat_frame), ("fill", fill_frame),
+                              ("quantise", quantise), ("crop", crop),
+                              ("resize", resize), ("round", to_uint8))
     return effect_fn
 
 

@@ -688,3 +688,42 @@ def test_pipeline_checkpoint_round_trip_on_the_card(cuda, tmp_path):
     want = pipe(image)
     assert (want[0] != want[-1]).any()
     np.testing.assert_array_equal(loaded(image), want)
+
+
+def test_spec_path_launches_no_kernel_on_the_card(cuda):
+    """``splat_method='scatter'`` and ``fill_impl='xla'`` name ``kbe_tpu``'s
+    XLA specs: on the card the effect runs their plain versions, with no
+    hand-written kernel, in the frame loop and in the bootstrap. The
+    production path with the same f32 nets launches its kernels (a C=68
+    render a bootstrap step, a C=4 render and a fill a frame) and agrees
+    with the spec at 64^2, 3 steps: mean SSIM >= 0.999."""
+    from kbe_torch.config import EffectConfig, ZoomSettings
+    from kbe_torch.data import demo_scene_image
+    from kbe_torch.ops.image_ops import ssim
+    from kbe_torch.pipeline.kenburns import build_effect_fn, create_models
+
+    size, steps = 64, 3
+    models = create_models(0, cuda)
+    image = torch.as_tensor(demo_scene_image(size, size), device=cuda)[None]
+    zoom = ZoomSettings.default_3d(size, size)
+    frames = {}
+    for name, kw in (("spec", dict(splat_method="scatter", fill_impl="xla")),
+                     ("production", {})):
+        fn = build_effect_fn(size, size, zoom, effect=EffectConfig(
+            num_steps=steps, **kw), device=cuda)
+        S.LAUNCHES.clear()
+        D.LAUNCHES.clear()
+        frames[name] = fn(models, image).float() / 255.0
+        torch.cuda.synchronize()
+        counts = {**S.LAUNCHES, **D.LAUNCHES}
+        if name == "spec":
+            assert counts == {}
+        else:
+            assert counts == {**{f"{k}/c4": steps for k in (
+                "fill", "zee", "degrid", "count", "place", "sum")},
+                **{f"{k}/c68": 2 for k in (
+                    "fill", "zee", "degrid", "count", "place", "sum")},
+                "discfill": steps}
+    scores = [float(ssim(frames["production"][i:i + 1],
+                         frames["spec"][i:i + 1])) for i in range(steps)]
+    assert sum(scores) / steps >= 0.999, scores

@@ -39,7 +39,9 @@ def test_port_imports_no_jax_and_no_kbe_tpu():
             "for ex in ('depth_estimation_torch', 'inpainting_torch'):\n"
             "    runpy.run_path(f'examples/{ex}.py', run_name='ex')\n"
             "for tool in ('make_bench_weights_torch', "
-            "'fidelity_report_torch'):\n"
+            "'fidelity_report_torch', 'bench_scene_torch', "
+            "'profile_frontend_torch', 'profile_frame_torch', "
+            "'dtype_sweep_torch'):\n"
             "    runpy.run_path(f'tools/{tool}.py', run_name='tool')\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'kbe_tpu'))\n"

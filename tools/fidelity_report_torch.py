@@ -8,27 +8,33 @@ The same scene goes through three configurations of
     the fill inside its ROI, both the hand-written CUDA kernels), bf16
     inpainting nets and f32 depth nets;
   - the spec path: ``splat_method='scatter'``, ``fill_impl='xla'``, f32
-    nets (the path the port's CPU tests hold to ``kbe_tpu``'s spec);
+    nets. These name ``kbe_tpu``'s XLA specs, and the effect runs them as
+    the plain PyTorch versions on every device (``render_pointcloud_plain``
+    in the frame loop and the bootstrap, ``fill_plain`` over the whole
+    frame): no hand-written kernel, which the report checks
+    (``spec_kernel_launches``). On the card the plain accumulate's
+    ``index_add_`` adds with atomics in no fixed order, so the spec runs
+    twice and ``spec_runs_equal`` says whether its two runs gave equal
+    frames (``spec_runs`` holds the second against the first);
   - ``kernels_f32_path``: the production kernels with f32 nets, so that
     its difference from the spec is the kernels' own and the production
     row's beyond it the bf16 nets'.
 
 Each row holds the per-frame SSIM of the uint8 frames against the spec
-path's (``kbe_torch.ops.image_ops.ssim``), the absolute differences and
-where the largest is. The production row adds its frames/s (best of 2
-timed runs of the front end and the pose loop after a warm-up), the
-cloud's valid points per grid and the hole pixels a frame that the fill
-sees (zero splat weight inside the fill's ROI).
+path's first run (``kbe_torch.ops.image_ops.ssim``), the absolute
+differences and where the largest is. The production row adds its
+frames/s (best of 2 timed runs of the front end and the pose loop after a
+warm-up), the cloud's valid points per grid and the hole pixels a frame
+that the fill sees (zero splat weight inside the fill's ROI).
 
-Weights and scene: ``find_bench_weights()``'s checkpoint
-(``tools/make_bench_weights_torch.py``) and the procedural demo scene
-when there is one; else seeded random weights and a noise image, whose
-noisy depth leaves the splat and the fill far more holes. ``scene`` says
-which.
+Weights and scene (``tools/bench_scene_torch.py``): the procedural demo
+scene, with ``find_bench_weights()``'s checkpoint
+(``tools/make_bench_weights_torch.py``) when there is one, else seeded
+random weights; ``scene`` says which.
 
 Usage (on the card): python tools/fidelity_report_torch.py [size] [n_steps]
 [out.json]; defaults 512, 75 (the full trajectory),
-``FIDELITY_torch_r01.json``.
+``FIDELITY_torch_r02.json``.
 """
 
 from __future__ import annotations
@@ -42,22 +48,30 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 
-def compare(frames, spec):
-    """SSIM and absolute-difference fields of uint8 ``frames`` against
-    ``spec`` (both (T, H, W, 3) numpy), as ``tools/fidelity_report.py``
-    writes them."""
+def frame_ssims(frames, spec):
+    """The SSIM of each uint8 frame of ``frames`` against ``spec`` (both
+    (T, H, W, 3) numpy), on the CPU."""
     import numpy as np
     import torch
 
     from kbe_torch.ops.image_ops import ssim
 
-    n = frames.shape[0]
     bf = frames.astype(np.float64) / 255.0
     sf = spec.astype(np.float64) / 255.0
-    ssims = [float(ssim(torch.as_tensor(bf[i][None], dtype=torch.float32),
-                        torch.as_tensor(sf[i][None], dtype=torch.float32)))
-             for i in range(n)]
-    diff = np.abs(bf - sf) * 255.0
+    return [float(ssim(torch.as_tensor(bf[i][None], dtype=torch.float32),
+                       torch.as_tensor(sf[i][None], dtype=torch.float32)))
+            for i in range(frames.shape[0])]
+
+
+def compare(frames, spec):
+    """SSIM and absolute-difference fields of uint8 ``frames`` against
+    ``spec`` (both (T, H, W, 3) numpy), as ``tools/fidelity_report.py``
+    writes them."""
+    import numpy as np
+
+    n = frames.shape[0]
+    ssims = frame_ssims(frames, spec)
+    diff = np.abs(frames.astype(np.float64) - spec.astype(np.float64))
     arg = np.unravel_index(int(np.argmax(diff)), diff.shape)
     argmin = int(np.argmin(ssims))
     row = {
@@ -89,41 +103,18 @@ def fidelity_report(size: int = 512, n_steps: int = 75, checkpoint="find",
     """The report as a dict. ``checkpoint``: a pipeline ``.tar``, None for
     seeded random weights, or 'find' for ``find_bench_weights()``.
     ``device`` defaults to ``cuda`` (raises where there is none)."""
-    import numpy as np
-    import torch
+    from kbe_torch.config import EffectConfig
+    from kbe_torch.pipeline.kenburns import build_effect_fn, path_stats
+    from tools.bench_scene_torch import bench_scene, card_of, \
+        kernel_launches, load_models
 
-    from kbe_torch.config import CameraConfig, EffectConfig, ZoomSettings
-    from kbe_torch.data import demo_scene_image
-    from kbe_torch.device import card_name, resolve_device
-    from kbe_torch.pipeline.kenburns import build_effect_fn, create_models, \
-        path_stats
-    from kbe_torch.train.checkpoint import find_bench_weights, \
-        load_pipeline_params
-
-    dev = resolve_device(device)
-    if checkpoint == "find":
-        checkpoint = find_bench_weights()
+    scene = bench_scene(size, n_steps, checkpoint, device=device,
+                        front=False)
+    dev, image, zoom = scene["device"], scene["image"], scene["zoom"]
     h = w = size
-    zoom = ZoomSettings.default_3d(w, h)
-    camera = CameraConfig()
-    if checkpoint:
-        image_np = demo_scene_image(h, w)
-        scene = (f"trained-synthetic weights ({os.path.basename(checkpoint)},"
-                 " tools/make_bench_weights_torch.py) + procedural demo scene")
-    else:
-        image_np = np.random.default_rng(0).uniform(
-            0, 1, (h, w, 3)).astype(np.float32)
-        scene = ("seeded random weights + noise image (no bench checkpoint; "
-                 "noisy depth leaves the splat and the fill more holes)")
-    image = torch.as_tensor(image_np, device=dev)[None]
-
-    def models(dtype, depth_dtype=None):
-        if checkpoint:
-            return load_pipeline_params(checkpoint, dev, dtype, depth_dtype)
-        return create_models(0, dev, dtype, depth_dtype)
 
     def run(effect, nets, label):
-        fn = build_effect_fn(h, w, zoom, camera, effect, device=dev)
+        fn = build_effect_fn(h, w, zoom, scene["camera"], effect, device=dev)
         t0 = time.perf_counter()
         frames = fn(nets, image).cpu().numpy()
         wall = time.perf_counter() - t0
@@ -131,28 +122,34 @@ def fidelity_report(size: int = 512, n_steps: int = 75, checkpoint="find",
             "plans)")
         return fn, frames, wall
 
-    production = EffectConfig(num_steps=n_steps)
+    production = scene["effect"]
     spec = EffectConfig(num_steps=n_steps, splat_method="scatter",
                         fill_impl="xla")
-    nets_prod = models(torch.bfloat16, torch.float32)
+    nets_prod = scene.pop("models")
     fn, prod_frames, t_prod = run(production, nets_prod, "production path")
     stats = path_stats(fn, nets_prod, image, h, w, zoom, production)
     del nets_prod
-    nets_f32 = models(torch.float32)
+    nets_f32 = load_models(scene["checkpoint"], dev, "all_f32")
+    spec_launches = kernel_launches(lambda: run(spec, nets_f32, "spec path"))
     _, spec_frames, t_spec = run(spec, nets_f32, "spec path")
+    _, spec_again, _ = run(spec, nets_f32, "spec path again")
     report = {
         "size": size,
         "n_steps": n_steps,
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu"),
-        "nvidia_smi": card_name() if dev.type == "cuda" else None,
-        "spec_path": "splat=scatter fill=xla dtype=float32",
+        **card_of(dev),
+        "spec_path": "splat=scatter (render_pointcloud_plain) fill=xla "
+                     "(fill_plain, the whole frame) dtype=float32: the plain "
+                     "PyTorch versions on the device, no hand-written "
+                     "kernel; run twice",
+        "spec_kernel_launches": spec_launches,
+        "spec_runs_equal": bool((spec_frames == spec_again).all()),
+        "spec_runs": compare(spec_again, spec_frames),
         "production_path": "splat=auto (render_posed) fill=pallas "
                            "(discfill in the ROI) depth-nets=float32 "
                            "inpaint-nets=bfloat16, the CUDA kernels",
         **compare(prod_frames, spec_frames),
         "production_stats": stats,
-        "scene": scene,
+        "scene": f"{scene['weights']} + procedural demo scene",
         "wall_s": {"production_path": t_prod, "spec_path": t_spec},
     }
     _, kern_frames, t_kern = run(production, nets_f32, "kernels_f32_path")
@@ -169,7 +166,7 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     size = int(argv[0]) if len(argv) > 0 else 512
     n_steps = int(argv[1]) if len(argv) > 1 else 75
-    out = argv[2] if len(argv) > 2 else "FIDELITY_torch_r01.json"
+    out = argv[2] if len(argv) > 2 else "FIDELITY_torch_r02.json"
     report = fidelity_report(size, n_steps)
     with open(out, "w") as f:
         json.dump(report, f, indent=2)
