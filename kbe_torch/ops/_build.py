@@ -20,6 +20,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
+from kbe_torch.utils.logging import count, span
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
 
@@ -81,10 +83,11 @@ def _bind(name: str, path: Path) -> ctypes.CDLL:
 
 
 def build_all() -> float:
-    """Build (or reuse) every library and load it; returns the seconds
-    spent. Raises with nvcc's output if a build fails."""
+    """Build (or reuse) every library and load it, in the span
+    ``kbe/build``, counting each nvcc build in ``kernel_builds``; returns
+    the seconds spent. Raises with nvcc's output if a build fails."""
     t0 = time.perf_counter()
-    with _LOCK:
+    with _LOCK, span("build"):
         todo = [n for n in SOURCES if n not in _LIBS]
         if not todo:
             return 0.0
@@ -100,6 +103,7 @@ def build_all() -> float:
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, out)
+            count("kernel_builds", 1)
         failed = []
         for name, (proc, tmp, out) in procs.items():
             log, _ = proc.communicate()

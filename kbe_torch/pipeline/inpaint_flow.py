@@ -25,6 +25,7 @@ from kbe_torch.ops.geometry import depth_to_points, disparity_to_depth
 from kbe_torch.ops.splat import render_pointcloud_plain
 from kbe_torch.ops.splat_banded import render_grids_fast_banded
 from kbe_torch.ops.splat_routed import render_grids_fast
+from kbe_torch.utils.logging import span
 
 SPLAT_METHODS = ("scatter", "banded", "routed")
 
@@ -108,39 +109,51 @@ def pointcloud_inpainting(models: InpaintModels, image: torch.Tensor,
     Returns a dict of (1, H, W, ...) tensors ``image``, ``disparity``,
     ``depth``, ``existing`` (the net's mask) and ``points`` (1, H*W, 3).
     The pieces it runs, in order, are this module's ``flow_cloud``,
-    ``render_payload``, ``coverage`` and ``inpaint_net``.
+    ``render_payload``, ``coverage`` and ``inpaint_net``, each in a span
+    (``kbe/bootstrap/inputs``, ``context``, ``splat68``, ``median``,
+    ``inpaint`` and ``unproject``).
     """
     if splat_method not in SPLAT_METHODS:
         raise ValueError(f"splat_method must be one of {SPLAT_METHODS}, got "
                          f"{splat_method!r}")
-    _, points = flow_cloud(disparity, camera, focal, validity_threshold)
-    image_n, img_stats = normalize_sample(image)
-    disp_n, disp_stats = normalize_sample(disparity)
+    with span("bootstrap/inputs"):
+        _, points = flow_cloud(disparity, camera, focal, validity_threshold)
+        image_n, img_stats = normalize_sample(image)
+        disp_n, disp_stats = normalize_sample(disparity)
 
     def render_with(context_fn):
-        return coverage(*render_payload(
-            points, shift, image_n, disp_n, context_fn(image_n, disp_n),
-            camera, focal, splat_method))
+        with span("bootstrap/context"):
+            context = context_fn(image_n, disp_n)
+        with span("bootstrap/splat68"):
+            splatted = render_payload(points, shift, image_n, disp_n,
+                                      context, camera, focal, splat_method)
+        with span("bootstrap/median"):
+            return coverage(*splatted)
 
-    out_image, out_disparity, out_existing = inpaint_net(
-        models.net, *render_with(models.context), img_stats, disp_stats)
+    def inpainted(net, context_fn):
+        covered = render_with(context_fn)
+        with span("bootstrap/inpaint"):
+            return inpaint_net(net, *covered, img_stats, disp_stats)
+
+    out_image, out_disparity, out_existing = inpainted(models.net,
+                                                       models.context)
     if models.depth_net is not None:
         # the dual-net mode renders a second payload with the depth net's
         # own context extractor
         context_depth = (models.context if models.context_depth is None
                          else models.context_depth)
-        _, out_disparity, _ = inpaint_net(
-            models.depth_net, *render_with(context_depth), img_stats,
-            disp_stats)
+        _, out_disparity, _ = inpainted(models.depth_net, context_depth)
 
-    out_depth, out_points = flow_cloud(out_disparity, camera, focal,
-                                       validity_threshold)
+    with span("bootstrap/unproject"):
+        out_depth, out_points = flow_cloud(out_disparity, camera, focal,
+                                           validity_threshold)
+        out_points = out_points - shift
     return {
         "image": out_image,
         "disparity": out_disparity,
         "depth": out_depth,
         "existing": out_existing,
-        "points": out_points - shift,
+        "points": out_points,
     }
 
 

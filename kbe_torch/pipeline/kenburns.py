@@ -12,6 +12,13 @@ Stages, as in the JAX package:
      shift and focal -> disocclusion fill -> uint8 quantise -> sub-pixel
      crop -> resize.
 
+Each stage runs in a span of ``kbe_torch.utils.logging`` (``kbe/video``,
+``kbe/front_end/...``, ``kbe/bootstrap/...``, ``kbe/pose_loop``,
+``kbe/frame/...``), which costs a flag check while tracing is off; while it
+is on, ``KenBurnsPipeline.__call__`` counts ``videos``, ``bytes_to_host``
+and ``effect_builds``, ``scene_of`` ``valid_points`` and the fill
+``hole_pixels``.
+
 ``EffectConfig.splat_method`` and ``fill_impl`` select the entry point that
 the JAX package selects with them (see ``build_effect_fn``). On CUDA tensors
 every one of them runs the hand-written kernels of ``kbe_torch/ops/csrc``,
@@ -53,6 +60,7 @@ from kbe_torch.ops.splat_routed import render_grids_fast
 from kbe_torch.pipeline.inpaint_flow import InpaintModels, \
     pointcloud_inpainting
 from kbe_torch.utils.convert import load_params
+from kbe_torch.utils.logging import count, settle, span, tracing_on
 
 SPLAT_METHODS = ("auto", "banded", "routed", "scatter", "delta", "pallas")
 FILL_IMPLS = ("pallas", "xla")
@@ -273,6 +281,7 @@ def scene_of(grids):
                            dim=-1)
     scene = prepare_scene(cloud_xyz, frame_data,
                           torch.stack([g[2] for g in grids]))
+    count("valid_points", scene.kept_xyz.shape[0])
     return scene, cloud_xyz
 
 
@@ -376,6 +385,7 @@ def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
     max_cw = max(zoom.src.crop_width, zoom.dst.crop_width)
     max_ch = max(zoom.src.crop_height, zoom.dst.crop_height)
     roi = fill_roi_of(height, width, zoom, effect)
+    y0, y1, x0, x1 = roi or (0, height, 0, width)
 
     def check_models(models: PipelineModels) -> None:
         if isinstance(models.refine, RefinePretrained) != pretrained_refine:
@@ -388,87 +398,111 @@ def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
             raise ValueError("inpaint_depth requires context_depth")
 
     def front_end(models: PipelineModels, image: torch.Tensor):
-        check_models(models)
-        resized = resize_to_max(image, max(height, width) // 2)
-        semantics = models.semantics(resized)
-        disp_half = models.disparity(resized, semantics)
-        if effect.two_d:
-            # 2D KBE: a flat scene
-            disp_half = torch.ones_like(disp_half)
-        disparity = models.refine(image, disp_half).float()
-        disparity, grid, anchor = depth_grid(image, disparity, camera,
-                                             effect.depth_range_margin)
-        grids = [grid]
-        if effect.inpaint and not effect.dolly:
-            flow = inpaint_models(models, partial_inpainting)
-            for s in (0.0, 1.0):
-                shift = compute_pose_shift(s, camera.focal, anchor, zoom,
-                                           camera, width, height)
-                inp = pointcloud_inpainting(
-                    flow, image, disparity, effect.inpaint_overshoot * shift,
-                    camera, camera.focal, effect.validity_threshold,
-                    splat_method=bootstrap_splat)
-                grids.append(inpainted_grid(inp, height, width))
-        scene, cloud_xyz = scene_of(grids)
-        return EffectState(scene, cloud_xyz, effect_poses(
-            anchor, zoom, camera, effect, width, height, dev))
+        with span("front_end"):
+            check_models(models)
+            with span("front_end/resize"):
+                resized = resize_to_max(image, max(height, width) // 2)
+            with span("front_end/semantics"):
+                semantics = models.semantics(resized)
+            with span("front_end/disparity"):
+                disp_half = models.disparity(resized, semantics)
+                if effect.two_d:
+                    # 2D KBE: a flat scene
+                    disp_half = torch.ones_like(disp_half)
+            with span("front_end/refine"):
+                disparity = models.refine(image, disp_half).float()
+            with span("front_end/depth_grid"):
+                disparity, grid, anchor = depth_grid(
+                    image, disparity, camera, effect.depth_range_margin)
+            grids = [grid]
+            if effect.inpaint and not effect.dolly:
+                flow = inpaint_models(models, partial_inpainting)
+                for k, s in enumerate((0.0, 1.0)):
+                    with span("front_end/bootstrap", step=k):
+                        shift = compute_pose_shift(s, camera.focal, anchor,
+                                                   zoom, camera, width,
+                                                   height)
+                        inp = pointcloud_inpainting(
+                            flow, image, disparity,
+                            effect.inpaint_overshoot * shift, camera,
+                            camera.focal, effect.validity_threshold,
+                            splat_method=bootstrap_splat)
+                        grids.append(inpainted_grid(inp, height, width))
+            with span("front_end/scene"):
+                scene, cloud_xyz = scene_of(grids)
+                return EffectState(scene, cloud_xyz, effect_poses(
+                    anchor, zoom, camera, effect, width, height, dev))
 
     def splat_frame(state: EffectState, pose: torch.Tensor):
         """One pose's (render (H, W, 4), weight (H, W, 1))."""
-        scene = state.scene
-        if splat == "banded":
-            return render_posed(scene, pose, height, width)
-        xyz = apply_shift(state.cloud_xyz, pose[:3])
-        g = xyz.shape[0]
-        data = scene.payload.reshape(g, height, width, -1)
-        valid = scene.valid.reshape(g, height, width)
-        focal = pose[3]
-        if splat == "routed":
-            render, weight = render_grids_fast(
-                xyz, data, height, width, focal, camera.baseline,
-                valid=valid, fallback=effect.splat_fallback)
-        elif splat == "delta":
-            render, weight = render_grids_fast_delta(
-                xyz, data, height, width, focal, camera.baseline,
-                valid=valid, fallback=effect.splat_fallback)
-        elif splat == "pallas":
-            render, weight = render_grids_pallas(
-                xyz, data, height, width, focal, camera.baseline,
-                valid=valid, margin=margin)
-        else:
-            # the spec: the plain passes on every device
-            render, weight = render_pointcloud_plain(
-                xyz.reshape(1, -1, 3), data.reshape(1, -1, data.shape[-1]),
-                height, width, focal, camera.baseline,
-                valid=valid.reshape(1, -1))
-        return render[0], weight[0]
+        with span("frame/splat"):
+            scene = state.scene
+            if splat == "banded":
+                return render_posed(scene, pose, height, width)
+            xyz = apply_shift(state.cloud_xyz, pose[:3])
+            g = xyz.shape[0]
+            data = scene.payload.reshape(g, height, width, -1)
+            valid = scene.valid.reshape(g, height, width)
+            focal = pose[3]
+            if splat == "routed":
+                render, weight = render_grids_fast(
+                    xyz, data, height, width, focal, camera.baseline,
+                    valid=valid, fallback=effect.splat_fallback)
+            elif splat == "delta":
+                render, weight = render_grids_fast_delta(
+                    xyz, data, height, width, focal, camera.baseline,
+                    valid=valid, fallback=effect.splat_fallback)
+            elif splat == "pallas":
+                render, weight = render_grids_pallas(
+                    xyz, data, height, width, focal, camera.baseline,
+                    valid=valid, margin=margin)
+            else:
+                # the spec: the plain passes on every device
+                render, weight = render_pointcloud_plain(
+                    xyz.reshape(1, -1, 3),
+                    data.reshape(1, -1, data.shape[-1]), height, width,
+                    focal, camera.baseline, valid=valid.reshape(1, -1))
+            return render[0], weight[0]
 
     def fill_frame(render: torch.Tensor, weight: torch.Tensor):
-        render_depth = render[..., 3:4] * (weight > 0.0)
-        if effect.fill_impl == "xla":
-            # the spec: the plain fill over the whole frame on every device
-            return fill_plain(render, render_depth, effect.fill_march_steps)
-        return fill_disocclusion_pallas(
-            render[None], render_depth[None], effect.fill_march_steps,
-            phase1_steps=effect.fill_march_phase1, roi=roi,
-            phase0_steps=effect.fill_phase0,
-            phase0_gate=effect.fill_phase0_gate)[0]
+        if tracing_on():
+            # the holes the fill sees: zero weight inside its ROI, summed
+            # on the device and read once a video
+            with span("frame/count"):
+                count("hole_pixels", (weight[y0:y1, x0:x1] <= 0.0).sum())
+        with span("frame/fill"):
+            render_depth = render[..., 3:4] * (weight > 0.0)
+            if effect.fill_impl == "xla":
+                # the spec: the plain fill over the whole frame on every
+                # device
+                return fill_plain(render, render_depth,
+                                  effect.fill_march_steps)
+            return fill_disocclusion_pallas(
+                render[None], render_depth[None], effect.fill_march_steps,
+                phase1_steps=effect.fill_march_phase1, roi=roi,
+                phase0_steps=effect.fill_phase0,
+                phase0_gate=effect.fill_phase0_gate)[0]
 
     # quantise BEFORE the crop, round after the crop and the resize, as the
     # reference's uint8 cv2 chain does
     def quantise(filled: torch.Tensor) -> torch.Tensor:
-        return torch.floor(torch.clamp(filled[..., 0:3] * 255.0, 0.0, 255.0))
+        with span("frame/quantise"):
+            return torch.floor(torch.clamp(filled[..., 0:3] * 255.0, 0.0,
+                                           255.0))
 
     def crop(rgb: torch.Tensor) -> torch.Tensor:
-        patch = crop_rect_subpix(rgb, max_cw, max_ch, width / 2.0,
-                                 height / 2.0)
-        return torch.clamp(torch.round(patch), 0.0, 255.0)
+        with span("frame/crop"):
+            patch = crop_rect_subpix(rgb, max_cw, max_ch, width / 2.0,
+                                     height / 2.0)
+            return torch.clamp(torch.round(patch), 0.0, 255.0)
 
     def resize(patch: torch.Tensor) -> torch.Tensor:
-        return resize_bilinear(patch[None], height, width)[0]
+        with span("frame/resize"):
+            return resize_bilinear(patch[None], height, width)[0]
 
     def to_uint8(out: torch.Tensor) -> torch.Tensor:
-        return torch.clamp(torch.round(out), 0.0, 255.0).to(torch.uint8)
+        with span("frame/round"):
+            return torch.clamp(torch.round(out), 0.0, 255.0).to(torch.uint8)
 
     def render_frame(state: EffectState, pose: torch.Tensor) -> torch.Tensor:
         filled = fill_frame(*splat_frame(state, pose))
@@ -477,8 +511,11 @@ def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
     def render_frames(state: EffectState) -> torch.Tensor:
         # poses are independent; they run one after another only to bound
         # the memory of the intermediate planes
-        return torch.stack([render_frame(state, state.poses[i])
-                            for i in range(state.poses.shape[0])])
+        with span("pose_loop"):
+            frames = [render_frame(state, state.poses[i])
+                      for i in range(state.poses.shape[0])]
+            with span("pose_loop/stack"):
+                return torch.stack(frames)
 
     @torch.inference_mode()
     def effect_fn(models: PipelineModels, image: torch.Tensor):
@@ -553,6 +590,8 @@ class KenBurnsPipeline:
     pretrained_refine: bool = False
     partial_inpainting: bool = False
     _cache: dict = dataclasses.field(default_factory=dict)
+    _videos: int = dataclasses.field(default=0, init=False, repr=False,
+                                     compare=False)
 
     @staticmethod
     def create(seed: int = 0, camera: CameraConfig = CameraConfig(),
@@ -590,23 +629,37 @@ class KenBurnsPipeline:
 
     def effect_fn(self, height: int, width: int,
                   zoom: ZoomSettings) -> Callable:
-        key = (height, width, zoom, self.effect, self.camera)
-        if key not in self._cache:
-            self._cache[key] = build_effect_fn(
-                height, width, zoom, self.camera, self.effect,
-                self.pretrained_refine, self.partial_inpainting,
-                device=self.device)
-        return self._cache[key]
+        with span("effect_fn"):
+            key = (height, width, zoom, self.effect, self.camera)
+            if key not in self._cache:
+                count("effect_builds", 1)
+                self._cache[key] = build_effect_fn(
+                    height, width, zoom, self.camera, self.effect,
+                    self.pretrained_refine, self.partial_inpainting,
+                    device=self.device)
+            return self._cache[key]
 
     def __call__(self, image: np.ndarray,
                  zoom: Optional[ZoomSettings] = None) -> np.ndarray:
         """``image``: (H, W, 3) float [0, 1] -> (num_steps, H, W, 3)
-        uint8."""
-        h, w = image.shape[0], image.shape[1]
-        if zoom is None:
-            zoom = (ZoomSettings.default_dolly(w, h) if self.effect.dolly
-                    else ZoomSettings.default_3d(w, h))
-        fn = self.effect_fn(h, w, zoom)
-        x = torch.as_tensor(np.asarray(image, np.float32),
-                            device=self.device)[None]
-        return fn(self.models, x).cpu().numpy()
+        uint8. The call is the span ``kbe/video``, its ordinal among this
+        pipeline's calls in its args."""
+        self._videos += 1
+        count("videos", 1)
+        with span("video", ordinal=self._videos):
+            h, w = image.shape[0], image.shape[1]
+            if zoom is None:
+                zoom = (ZoomSettings.default_dolly(w, h) if self.effect.dolly
+                        else ZoomSettings.default_3d(w, h))
+            fn = self.effect_fn(h, w, zoom)
+            with span("upload"):
+                x = torch.as_tensor(np.asarray(image, np.float32),
+                                    device=self.device)[None]
+            frames = fn(self.models, x)
+            with span("to_host"):
+                out = frames.cpu().numpy()
+            count("bytes_to_host", out.nbytes)
+        if tracing_on():
+            # the copy has synchronised: the device's counts are ready
+            settle()
+        return out

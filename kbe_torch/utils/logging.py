@@ -1,16 +1,26 @@
-"""Observability: metrics files and per-stage timing. Port of
-``kbe_tpu/utils/logging.py``'s ``MetricsWriter``, ``StageTimer`` and
-``profiler_trace``.
+"""Observability: metrics files, the effect's spans and counters, and
+profiler traces. Port of ``kbe_tpu/utils/logging.py``'s ``MetricsWriter``
+and ``profiler_trace``; the tracer replaces its ``StageTimer``.
 
 ``MetricsWriter`` writes every scalar to ``<logdir>/metrics.jsonl``, and to
 TensorBoard too where ``tensorboardX`` is installed, in an auto-incremented
 run directory (``runs/train_0`` -> ``runs/train_1`` if taken).
-``StageTimer`` times named stages on the host clock and, given a CUDA
-tensor, synchronises its device before it stops the clock, so a stage's
-time includes its device work. ``profiler_trace`` writes a
-``torch.profiler`` trace of its body (the host, and the card where there
-is one) to ``<logdir>/trace.json``, which Perfetto or
-``chrome://tracing`` open.
+
+The tracer is off unless a block turns it on (``tracing()``). Off,
+``span(name)`` returns one shared null context and ``count`` does nothing,
+so the effect's path pays a flag check a call. On, ``span(name, **args)``
+is a ``torch.profiler.record_function`` range named ``kbe/<name>`` (its
+``args`` as JSON), so in a ``torch.profiler`` session the spans share the
+device operations' clock and nest as the calls do; and ``count(name, n)``
+adds ``n`` to a counter in memory: a Python int as it is, a tensor (a
+count that lives on the device) into a tensor on its device, which
+``settle`` reads, once the caller has synchronised. ``counters()``
+returns the counts and ``reset_counters()`` clears them.
+
+``profiler_trace`` turns tracing on and writes a ``torch.profiler`` trace
+of its body (the host, and the card where there is one) to
+``<logdir>/trace.json``, which Perfetto or ``chrome://tracing`` open, and
+the body's counts to ``<logdir>/counters.json``.
 """
 
 from __future__ import annotations
@@ -19,7 +29,7 @@ import contextlib
 import json
 import os
 import re
-import time
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -109,33 +119,78 @@ class NullWriter:
         pass
 
 
-class StageTimer:
-    """Wall-clock seconds per named stage."""
+_TRACING = False
+_NULL_SPAN = contextlib.nullcontext()
+_HOST_COUNTS: Dict[str, int] = {}
+_DEVICE_COUNTS: Dict[str, torch.Tensor] = {}
+_COUNT_LOCK = threading.Lock()
 
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
 
-    @contextlib.contextmanager
-    def stage(self, name: str, block_on: Optional[torch.Tensor] = None):
-        """Time the body; with ``block_on`` a CUDA tensor, wait for its
-        device first."""
-        t0 = time.perf_counter()
+def tracing_on() -> bool:
+    """Whether spans and counts are recorded."""
+    return _TRACING
+
+
+@contextlib.contextmanager
+def tracing(on: bool = True):
+    """Spans and counts on (or off) inside the block."""
+    global _TRACING
+    was, _TRACING = _TRACING, on
+    try:
         yield
-        if block_on is not None and block_on.is_cuda:
-            torch.cuda.synchronize(block_on.device)
-        dt = time.perf_counter() - t0
-        self.totals[name] = self.totals.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
+    finally:
+        _TRACING = was
 
-    def summary(self) -> Dict[str, float]:
-        return {k: self.totals[k] / self.counts[k] for k in self.totals}
+
+def span(name: str, **args):
+    """A ``kbe/<name>`` range of the profiler while tracing is on, else the
+    shared null context."""
+    if not _TRACING:
+        return _NULL_SPAN
+    return torch.profiler.record_function(
+        "kbe/" + name, json.dumps(args) if args else None)
+
+
+def count(name: str, n) -> None:
+    """Add ``n`` (an int, or a one-element tensor left on its device) to
+    the counter ``name`` while tracing is on."""
+    if not _TRACING:
+        return
+    with _COUNT_LOCK:
+        if isinstance(n, torch.Tensor):
+            held = _DEVICE_COUNTS.get(name)
+            _DEVICE_COUNTS[name] = n if held is None else held + n
+        else:
+            _HOST_COUNTS[name] = _HOST_COUNTS.get(name, 0) + int(n)
+
+
+def settle() -> None:
+    """Read the counts held on a device into the host's: a synchronise
+    where a device still works on them, so call it after one."""
+    with _COUNT_LOCK:
+        for name, held in _DEVICE_COUNTS.items():
+            _HOST_COUNTS[name] = _HOST_COUNTS.get(name, 0) + int(held)
+        _DEVICE_COUNTS.clear()
+
+
+def counters() -> Dict[str, int]:
+    """Every counter's total since the last ``reset_counters``."""
+    settle()
+    with _COUNT_LOCK:
+        return dict(_HOST_COUNTS)
+
+
+def reset_counters() -> None:
+    with _COUNT_LOCK:
+        _HOST_COUNTS.clear()
+        _DEVICE_COUNTS.clear()
 
 
 @contextlib.contextmanager
 def profiler_trace(logdir: Optional[str]):
-    """A ``torch.profiler`` trace of the body into
-    ``<logdir>/trace.json``; a no-op for ``logdir=None``."""
+    """Tracing on, a ``torch.profiler`` trace of the body into
+    ``<logdir>/trace.json`` and the body's counts into
+    ``<logdir>/counters.json``; a no-op for ``logdir=None``."""
     if logdir is None:
         yield
         return
@@ -144,7 +199,12 @@ def profiler_trace(logdir: Optional[str]):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    before = counters()
+    with profile(activities=activities) as prof, tracing():
         yield
+    counts = {name: n - before.get(name, 0)
+              for name, n in counters().items()}
     os.makedirs(logdir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    with open(os.path.join(logdir, "counters.json"), "w") as f:
+        json.dump(counts, f, indent=1, sort_keys=True)
