@@ -15,11 +15,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      (a2) splat, C=4, one grid at a pose with a focal of its own (dolly);
      (c2) fill of the (a2) render: one grid, no inpainted grids (dolly);
      (p) a pathological cloud: 65,536 points of a 1024^2 grid on one pixel;
+     (k) the finish (quantise, crop, round, resize, round into uint8) of
+         the (c) fill's frame, the default move's crop, against the plain
+         chain (bit-equal);
+     (k2) the finish of the (c2) fill's frame, dolly's crop;
   4. main path: the 1024^2, 75-frame effect at the production precision mix
      (f32 depth nets, bf16 inpainting nets), seeded random weights; checks
      the frames and that every kernel ran (77 renders of six splat
      kernels each: the front half's fill, zee and degrid, then count,
-     place and sum; 75 fills);
+     place and sum; 75 fills, 75 finishes);
      prints the
      scene's size, each grid's valid share and the fill's holes a frame;
   5. card vs CPU: the default effect, dolly and partial-conv inpainting at
@@ -182,6 +186,7 @@ K7_DELTA = "kbe_tpu/ops/legacy/splat_delta.py:85"     # _build_delta_kernel
 SPLAT_SRC = "kbe_torch/ops/csrc/splat.cu"
 FRONT_KERNELS = ("splat_fill", "splat_zee", "splat_degrid")
 FILL_SRC = "kbe_torch/ops/csrc/discfill.cu"
+FINISH_SRC = "kbe_torch/ops/csrc/finish.cu"
 
 
 def log(*args):
@@ -572,6 +577,57 @@ def fill_phase(label, render, existing, roi, rows, name="discfill",
     rows.append(row)
 
 
+def finish_bytes(taps, h: int, w: int) -> int:
+    """The least bytes of a finish: the crop's window of the filled frame
+    read once (its rgb, 12 B a pixel) and the uint8 frame written once (3 B
+    a pixel)."""
+    (ylo, yhi, _, _), (xlo, xhi, _, _) = taps.crop_y, taps.crop_x
+    rows = int(yhi.max()) - int(ylo.min()) + 1
+    cols = int(xhi.max()) - int(xlo.min()) + 1
+    return rows * cols * 12 + h * w * 3
+
+
+def finish_phase(label, filled, zoom, rows, name="finish", **extra):
+    """The finish of a filled frame (H, W, 4) under ``zoom``'s crop: the
+    kernel against the plain chain (bit-equal), then timed, writing into a
+    frame of its own."""
+    import torch
+    from kbe_torch.ops import finish as F
+    from kbe_torch.pipeline.kenburns import frame_taps
+
+    h, w = filled.shape[0], filled.shape[1]
+    taps = frame_taps(h, w, zoom, filled.device)
+    plan = F.finish_plan(taps)
+    out = torch.empty((h, w, 3), dtype=torch.uint8, device=filled.device)
+    want = F.finish_plain(filled, taps)
+    if not torch.equal(F.finish_cuda(filled, plan, out), want):
+        raise AssertionError(f"{label}: not bit-equal to the plain chain, "
+                             f"{int((out != want).sum())} values differ")
+    ms = timed(lambda: F.finish_cuda(filled, plan, out), 20)
+    dev = device_ms(lambda: F.finish_cuda(filled, plan, out), 20,
+                    ("finish_kernel",))
+    pms = timed(lambda: F.finish_plain(filled, taps), 2)
+    nbytes = finish_bytes(taps, h, w)
+    b_ms, b_by = bound(nbytes, 0)
+    log(f"{label}: {h}x{w} from a {plan.crop_height}x{plan.crop_width} "
+        f"crop, tiles "
+        f"{F.TILE}, {4 * (plan.a_floats + plan.b_floats)} B of shared "
+        f"memory a block; bit-equal to the plain chain; kernel ms {ms:.4f} "
+        f"(device {dev[0]:.4f}), plain ms {pms:.4f}, bound {b_ms:.4f} "
+        f"({nbytes} B)")
+    row = {"name": name, "route": "cuda", "source": FINISH_SRC,
+           "replaces": None,
+           "replaces_note": "none: kbe_tpu finishes a frame in XLA (the "
+                            "uint8 quantise, crop_rect_subpix_mm, "
+                            "resize_bilinear)",
+           "count_key": "finish", "max_abs_err": 0.0, "ms": ms,
+           "device_ms": dev[0], "device_all_ms": dev[1], "plain_ms": pms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "tile": list(F.TILE), "bytes": nbytes}
+    row.update(extra)
+    rows.append(row)
+
+
 def kernel_phases(rows, more):
     import torch
     from kbe_torch.ops import splat as S
@@ -614,6 +670,17 @@ def kernel_phases(rows, more):
                fill_roi_of(SIZE, SIZE, ZoomSettings.default_dolly(SIZE, SIZE),
                            EffectConfig(dolly=True)), more,
                name="discfill/dolly", mode="dolly")
+    # (k), (k2) the finish of the (c) and (c2) fills' frames
+    from kbe_torch.ops import discfill as D
+    for label, rend, ex, z, eff, out_rows, kw in (
+            ("(k) finish", render, existing, zoom, EffectConfig(), rows, {}),
+            ("(k2) finish, dolly frame", render1, existing1,
+             ZoomSettings.default_dolly(SIZE, SIZE), EffectConfig(dolly=True),
+             more, {"name": "finish/dolly", "mode": "dolly"})):
+        depth = (rend[..., 3:4] * (ex > 0.0)).contiguous()
+        filled = D.fill_cuda(rend.contiguous(), depth, 128,
+                             fill_roi_of(SIZE, SIZE, z, eff))
+        finish_phase(label, filled, z, out_rows, **kw)
     # (d) run to run: two identical renders at each width
     for c, again in ((4, lambda: S.render_posed(scene, pose, SIZE, SIZE)),
                      (68, lambda: S.splat(pts, payload68.reshape(-1, 68),
@@ -666,7 +733,6 @@ def main_path():
     import torch
     from kbe_torch.config import ZoomSettings
     from kbe_torch.data import demo_scene_image
-    from kbe_torch.ops import discfill, splat
     from kbe_torch.pipeline import KenBurnsPipeline
 
     pipe = KenBurnsPipeline.create(seed=0, dtype=torch.bfloat16,
@@ -676,22 +742,21 @@ def main_path():
     torch.cuda.synchronize()
 
     # the counted run, through the user's entry point
-    splat.LAUNCHES.clear()
-    discfill.LAUNCHES.clear()
+    clear_launches()
     t0 = time.perf_counter()
     frames = pipe(image_np)
     wall = time.perf_counter() - t0
-    counts = dict(splat.LAUNCHES)
-    counts.update(discfill.LAUNCHES)
+    counts = launch_counts()
     log(f"main path launch counts: {json.dumps(counts, sort_keys=True)}")
     for kern in SPLAT_PASSES:
         c4, c68 = counts.get(f"{kern}/c4", 0), counts.get(f"{kern}/c68", 0)
         if (c4, c68) != (STEPS, 2):
             raise AssertionError(f"splat_{kern}: {c4} frame + {c68} "
                                  f"bootstrap launches, want {STEPS} + 2")
-    if counts.get("discfill", 0) != STEPS:
-        raise AssertionError(f"discfill: {counts.get('discfill')} launches,"
-                             f" want {STEPS}")
+    for kern in ("discfill", "finish"):
+        if counts.get(kern, 0) != STEPS:
+            raise AssertionError(f"{kern}: {counts.get(kern)} launches, "
+                                 f"want {STEPS}")
     if frames.shape != (STEPS, SIZE, SIZE, 3) or frames.dtype != np.uint8:
         raise AssertionError(f"frames {frames.shape} {frames.dtype}")
     if int(frames.max()) == int(frames.min()):
@@ -762,20 +827,22 @@ def card_vs_cpu():
 
 
 def launch_counts():
-    from kbe_torch.ops import discfill, nms, splat
+    from kbe_torch.ops import discfill, finish, nms, splat
 
     counts = dict(splat.LAUNCHES)
     counts.update(discfill.LAUNCHES)
     counts.update(nms.LAUNCHES)
+    counts.update(finish.LAUNCHES)
     return counts
 
 
 def clear_launches():
-    from kbe_torch.ops import discfill, nms, splat
+    from kbe_torch.ops import discfill, finish, nms, splat
 
     splat.LAUNCHES.clear()
     discfill.LAUNCHES.clear()
     nms.LAUNCHES.clear()
+    finish.LAUNCHES.clear()
 
 
 def expect_counts(label, want):
@@ -980,6 +1047,7 @@ def mode_phases(size: int = SIZE, device: str = "cuda"):
         wall = time.perf_counter() - t0
         counts = launch_counts()
         want = splat_counts(4, MODE_STEPS)
+        want["finish"] = MODE_STEPS
         if effect.fill_impl != "xla":   # 'xla' is the spec: the plain fill
             want["discfill"] = MODE_STEPS
         if boot:
@@ -3009,7 +3077,8 @@ def dp_phase(size=TRAIN_SIZE, device: str = "cuda"):
     per_rank = DP_EFFECT["images"] // DP_WORLD
     want_counts = ({**splat_counts(4, steps * per_rank),
                     **splat_counts(68, 2 * per_rank),
-                    "discfill": steps * per_rank} if device == "cuda"
+                    "discfill": steps * per_rank,
+                    "finish": steps * per_rank} if device == "cuda"
                    else {})
     for r, run in enumerate(ranks):
         if run["effect_launches"] != want_counts:
@@ -3113,7 +3182,8 @@ def trained_weights_phase(size: int = SIZE, steps: int = STEPS,
         frames = pipe(image_np)
         counts = launch_counts()
         want = ({**splat_counts(4, steps), **splat_counts(68, 2),
-                 "discfill": steps} if device == "cuda" else {})
+                 "discfill": steps, "finish": steps} if device == "cuda"
+                else {})
         if counts != want:
             raise AssertionError(f"(y) launches {counts}, want {want}")
         if frames.shape != (steps, size, size, 3) \
@@ -3201,7 +3271,7 @@ def spec_phase(main_counts, size: int = SPEC_SIZE, steps: int = SPEC_STEPS,
     clear_launches()
     prod = scene["fn"](scene["models"], scene["image"]).cpu().numpy()
     want = ({**splat_counts(4, steps), **splat_counts(68, 2),
-             "discfill": steps} if on_card else {})
+             "discfill": steps, "finish": steps} if on_card else {})
     expect_counts("(z) production path, f32 nets", want)
     row = compare(prod, spec)
     log(f"(z) spec path (scatter + xla, f32 nets) at {size}^2 x {steps}, "
@@ -3232,7 +3302,7 @@ def spec_phase(main_counts, size: int = SPEC_SIZE, steps: int = SPEC_STEPS,
     got = {}
     for r in frames["stages"]:
         kernels = r.get("kernels_a_frame", {})   # none for the final wait
-        if kernels and r["stage"] not in ("splat", "fill"):
+        if kernels and r["stage"] not in ("splat", "fill", "finish"):
             raise AssertionError(f"(z) frame stage {r['stage']} launched "
                                  f"{kernels}")
         got.update(kernels)

@@ -47,6 +47,10 @@ SOURCES = {
         "kbe_nms_max_cap": ([], _I),
         "kbe_nms": ([_P, _P, _I, _I, _F, _P, _P], _I),
     }),
+    "finish": (["-fmad=false"], {
+        "kbe_finish": ([_P, _I, _I, _P, _I, _P, _I, _P, _P] + [_I] * 4
+                       + [_P, _P], _I),
+    }),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

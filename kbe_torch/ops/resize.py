@@ -27,8 +27,10 @@ import numpy as np
 import torch
 
 
-def _axis_taps(n_in: int, n_out: int, device):
-    """(lo, hi, w_lo, w_hi) for one resized axis, JAX's f32 arithmetic."""
+def resize_taps(n_in: int, n_out: int, device):
+    """(lo, hi, w_lo, w_hi) for one resized axis, JAX's f32 arithmetic: an
+    output takes ``x[lo] * w_lo + x[hi] * w_hi``. At ``n_in == n_out`` the
+    taps are the identity (w_lo = 1, w_hi = 0)."""
     inv_scale = torch.full((), np.float32(1.0 / (n_out / n_in)),
                            device=device)
     s = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) \
@@ -66,7 +68,7 @@ def _resize_axis(x: torch.Tensor, n_out: int, axis: int) -> torch.Tensor:
     n_in = x.shape[axis]
     if n_in == n_out:
         return x
-    return _two_taps(x, axis, *_axis_taps(n_in, n_out, x.device))
+    return _two_taps(x, axis, *resize_taps(n_in, n_out, x.device))
 
 
 def resize_bilinear(image: torch.Tensor, height: int,
@@ -143,15 +145,16 @@ def resize_to_max(image: torch.Tensor, max_size: int) -> torch.Tensor:
     return resize_bilinear(image, new_h, new_w)
 
 
-def _interp_axis(image: torch.Tensor, coords: torch.Tensor,
-                 axis: int) -> torch.Tensor:
-    """Linear interpolation along ``axis`` at ``coords``, borders clamped."""
-    n = image.shape[axis]
+def crop_taps(n_in: int, patch: int, center, device):
+    """(lo, hi, w_lo, w_hi) of one axis of ``crop_rect_subpix``: linear
+    interpolation at ``center - (patch - 1)/2 + i``, borders clamped."""
+    coords = (torch.arange(patch, dtype=torch.float32, device=device)
+              + center - (patch - 1) / 2.0)
     i0 = torch.floor(coords)
     frac = coords - i0
-    lo = torch.clamp(i0.to(torch.long), 0, n - 1)
-    hi = torch.clamp(i0.to(torch.long) + 1, 0, n - 1)
-    return _two_taps(image, axis, lo, hi, 1.0 - frac, frac)
+    lo = torch.clamp(i0.to(torch.long), 0, n_in - 1)
+    hi = torch.clamp(i0.to(torch.long) + 1, 0, n_in - 1)
+    return lo, hi, 1.0 - frac, frac
 
 
 def crop_rect_subpix(image: torch.Tensor, patch_width: int,
@@ -161,9 +164,7 @@ def crop_rect_subpix(image: torch.Tensor, patch_width: int,
     C). Computes what ``kbe_tpu``'s ``crop_rect_subpix_mm`` computes with
     two banded matrix products."""
     dev = image.device
-    xs = (torch.arange(patch_width, dtype=torch.float32, device=dev)
-          + center_u - (patch_width - 1) / 2.0)
-    ys = (torch.arange(patch_height, dtype=torch.float32, device=dev)
-          + center_v - (patch_height - 1) / 2.0)
-    out = _interp_axis(image, ys, axis=0)
-    return _interp_axis(out, xs, axis=1)
+    out = _two_taps(image, 0, *crop_taps(image.shape[0], patch_height,
+                                         center_v, dev))
+    return _two_taps(out, 1, *crop_taps(image.shape[1], patch_width,
+                                        center_u, dev))

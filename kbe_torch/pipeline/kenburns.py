@@ -9,8 +9,8 @@ Stages, as in the JAX package:
      appended to the cloud as a pixel grid valid where the net reports no
      coverage (3 grids);
   3. the pose loop: splat of the cloud (payload rgb + depth) at each pose's
-     shift and focal -> disocclusion fill -> uint8 quantise -> sub-pixel
-     crop -> resize.
+     shift and focal -> disocclusion fill -> the finish (uint8 quantise ->
+     sub-pixel crop -> resize), written into the video's buffer.
 
 Each stage runs in a span of ``kbe_torch.utils.logging`` (``kbe/video``,
 ``kbe/front_end/...``, ``kbe/bootstrap/...``, ``kbe/pose_loop``,
@@ -24,10 +24,10 @@ the JAX package selects with them (see ``build_effect_fn``). On CUDA tensors
 every one of them runs the hand-written kernels of ``kbe_torch/ops/csrc``,
 but for the two that name JAX's XLA specs, ``splat_method='scatter'`` and
 ``fill_impl='xla'``: those run the plain versions on every device, as JAX
-runs no kernel for them. On CPU tensors everything runs the plain versions.
-The kernels never drop a point, so ``splat_overflow_chunks`` and
-``splat_fallback`` have nothing to choose and ``with_stats`` reports
-``splat_overflow_frames = 0``.
+runs no kernel for them; together they also keep the plain finish. On CPU
+tensors everything runs the plain versions. The kernels never drop a point,
+so ``splat_overflow_chunks`` and ``splat_fallback`` have nothing to choose
+and ``with_stats`` reports ``splat_overflow_frames = 0``.
 """
 
 from __future__ import annotations
@@ -46,14 +46,15 @@ from kbe_torch.models import (ContextNet, Disparity, Inpaint, PartialInpaint,
                               Refine, RefinePretrained, Semantics)
 from kbe_torch.models.layers import init_params
 from kbe_torch.ops.discfill import fill_disocclusion_pallas, fill_plain
+from kbe_torch.ops.finish import finish_cuda, finish_plain, finish_plan, \
+    finish_taps
 from kbe_torch.ops.geometry import (apply_shift, depth_range,
                                     depth_to_points, disparity_to_depth,
                                     interpolate_window, solve_shift,
                                     true_div)
 from kbe_torch.ops.legacy import render_grids_fast_delta, \
     render_grids_pallas
-from kbe_torch.ops.resize import crop_rect_subpix, resize_bilinear, \
-    resize_to_max
+from kbe_torch.ops.resize import resize_to_max
 from kbe_torch.ops.splat import prepare_scene, render_pointcloud_plain, \
     render_posed
 from kbe_torch.ops.splat_routed import render_grids_fast
@@ -223,6 +224,16 @@ def fill_roi_of(height: int, width: int, zoom: ZoomSettings,
     return (ry0, ry1, rx0, rx1)
 
 
+def frame_taps(height: int, width: int, zoom: ZoomSettings, device):
+    """The finish's taps of the effect's frames (``ops/finish.py``): the
+    move's largest crop window, centred, resized back to (height,
+    width)."""
+    return finish_taps(height, width,
+                       max(zoom.src.crop_height, zoom.dst.crop_height),
+                       max(zoom.src.crop_width, zoom.dst.crop_width),
+                       width / 2.0, height / 2.0, device)
+
+
 def depth_grid(image: torch.Tensor, disparity: torch.Tensor,
                camera: CameraConfig, margin: float):
     """The end of the depth stage: the refined ``disparity`` (1, H, W, 1)
@@ -356,8 +367,13 @@ def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
     ``render_frames(state) -> frames`` (the pose loop), for timing; and
     ``frame_stages``, the pose loop's body as named steps, each taking the
     one before's output: ``splat`` (state, pose) -> (render, weight),
-    ``fill`` (render, weight) -> filled, ``quantise``, ``crop``, ``resize``
-    and ``round`` (the uint8 frame).
+    ``fill`` (render, weight) -> filled, and ``finish`` -> the uint8 frame
+    (``ops/finish.py``: quantise, crop, round, resize, round). The finish's
+    taps are built here, once an effect. On CUDA the finish is kernel
+    ``finish``, writing each frame into its slot of the video's buffer,
+    but for the spec pair (``'scatter'`` with ``'xla'``), which runs the
+    plain chain as the CPU does; ``render_frames`` counts the kernel's
+    frames in ``finish_kernel_frames``.
     """
     dev = resolve_device(device)
     if height % 4 or width % 4:
@@ -382,8 +398,6 @@ def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
     if dev.type == "cuda":
         disable_tf32()
 
-    max_cw = max(zoom.src.crop_width, zoom.dst.crop_width)
-    max_ch = max(zoom.src.crop_height, zoom.dst.crop_height)
     roi = fill_roi_of(height, width, zoom, effect)
     y0, y1, x0, x1 = roi or (0, height, 0, width)
 
@@ -483,39 +497,39 @@ def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
                 phase0_steps=effect.fill_phase0,
                 phase0_gate=effect.fill_phase0_gate)[0]
 
-    # quantise BEFORE the crop, round after the crop and the resize, as the
-    # reference's uint8 cv2 chain does
-    def quantise(filled: torch.Tensor) -> torch.Tensor:
-        with span("frame/quantise"):
-            return torch.floor(torch.clamp(filled[..., 0:3] * 255.0, 0.0,
-                                           255.0))
+    # the finish's taps, the same for every pose; the kernel finishes a
+    # frame wherever the effect runs on the card, but for the spec pair,
+    # which launches no hand-written kernel
+    taps = frame_taps(height, width, zoom, dev)
+    finish_kernel = dev.type == "cuda" and not (
+        splat == "scatter" and effect.fill_impl == "xla")
+    plan = finish_plan(taps) if finish_kernel else None
 
-    def crop(rgb: torch.Tensor) -> torch.Tensor:
-        with span("frame/crop"):
-            patch = crop_rect_subpix(rgb, max_cw, max_ch, width / 2.0,
-                                     height / 2.0)
-            return torch.clamp(torch.round(patch), 0.0, 255.0)
-
-    def resize(patch: torch.Tensor) -> torch.Tensor:
-        with span("frame/resize"):
-            return resize_bilinear(patch[None], height, width)[0]
-
-    def to_uint8(out: torch.Tensor) -> torch.Tensor:
-        with span("frame/round"):
-            return torch.clamp(torch.round(out), 0.0, 255.0).to(torch.uint8)
-
-    def render_frame(state: EffectState, pose: torch.Tensor) -> torch.Tensor:
-        filled = fill_frame(*splat_frame(state, pose))
-        return to_uint8(resize(crop(quantise(filled))))
+    def finish(filled: torch.Tensor, out: Optional[torch.Tensor] = None):
+        """The filled frame (H, W, 4) -> its uint8 (H, W, 3), into ``out``
+        where given."""
+        with span("frame/finish"):
+            if finish_kernel:
+                if out is None:
+                    out = torch.empty((height, width, 3), dtype=torch.uint8,
+                                      device=filled.device)
+                return finish_cuda(filled, plan, out)
+            frame = finish_plain(filled, taps)
+            return frame if out is None else out.copy_(frame)
 
     def render_frames(state: EffectState) -> torch.Tensor:
         # poses are independent; they run one after another only to bound
         # the memory of the intermediate planes
         with span("pose_loop"):
-            frames = [render_frame(state, state.poses[i])
-                      for i in range(state.poses.shape[0])]
-            with span("pose_loop/stack"):
-                return torch.stack(frames)
+            steps = state.poses.shape[0]
+            frames = torch.empty((steps, height, width, 3),
+                                 dtype=torch.uint8, device=state.poses.device)
+            for i in range(steps):
+                finish(fill_frame(*splat_frame(state, state.poses[i])),
+                       frames[i])
+            if finish_kernel:
+                count("finish_kernel_frames", steps)
+            return frames
 
     @torch.inference_mode()
     def effect_fn(models: PipelineModels, image: torch.Tensor):
@@ -527,8 +541,7 @@ def build_effect_fn(height: int, width: int, zoom: ZoomSettings,
     effect_fn.front_end = torch.inference_mode()(front_end)
     effect_fn.render_frames = torch.inference_mode()(render_frames)
     effect_fn.frame_stages = (("splat", splat_frame), ("fill", fill_frame),
-                              ("quantise", quantise), ("crop", crop),
-                              ("resize", resize), ("round", to_uint8))
+                              ("finish", finish))
     return effect_fn
 
 

@@ -14,8 +14,11 @@ import pytest
 import torch
 
 from kbe_torch.ops import discfill as D
+from kbe_torch.ops import finish as F
 from kbe_torch.ops import splat as S
 from kbe_torch.ops.geometry import depth_to_points
+from tests.test_torch_finish import CASES as FINISH_CASES
+from tests.test_torch_finish import case_taps, filled_frames
 
 pytestmark = pytest.mark.gpu
 
@@ -284,6 +287,42 @@ def test_fill_pallas_entry_runs_the_kernel(cuda, kwargs):
                                      **kwargs)
     assert dict(D.LAUNCHES) == {"discfill": 1}
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("h, w, move", FINISH_CASES)
+def test_finish_kernel_equals_the_plain_chain(cuda, h, w, move):
+    """Kernel ``finish`` against the plain chain on the card, bit for bit,
+    on seeded frames with values below 0 and above 1 and on one of a
+    constant colour, written into the middle slot of a video's buffer: its
+    neighbours are left as they were. One launch a frame."""
+    taps = case_taps(h, w, move, cuda)
+    plan = F.finish_plan(taps)
+    for filled in filled_frames(h, w, seed=5 * h + w):
+        filled = filled.to(cuda)
+        video = torch.full((3, h, w, 3), 7, dtype=torch.uint8, device=cuda)
+        F.LAUNCHES.clear()
+        F.finish_cuda(filled, plan, video[1])
+        torch.cuda.synchronize()
+        assert dict(F.LAUNCHES) == {"finish": 1}
+        assert torch.equal(video[1], F.finish_plain(filled, taps))
+        assert (video[0] == 7).all() and (video[2] == 7).all()
+
+
+def test_finish_kernel_refuses_bad_inputs(cuda):
+    taps = case_taps(64, 64, "3d", cuda)
+    plan = F.finish_plan(taps)
+    out = torch.empty(64, 64, 3, dtype=torch.uint8, device=cuda)
+    for bad in (torch.zeros(64, 64, 3, device=cuda),
+                torch.zeros(64, 64, 4, device=cuda, dtype=torch.float64),
+                torch.zeros(64, 128, 4, device=cuda)[:, ::2]):
+        with pytest.raises(ValueError):
+            F.finish_cuda(bad, plan, out)
+    shifted = torch.zeros(64 * 64 * 4 + 1, device=cuda)[1:].view(64, 64, 4)
+    with pytest.raises(ValueError, match="16 B"):
+        F.finish_cuda(shifted, plan, out)
+    with pytest.raises(ValueError, match="uint8"):
+        F.finish_cuda(torch.zeros(64, 64, 4, device=cuda), plan,
+                      out.float())
 
 
 def test_autozoom_on_the_card_picks_the_cpu_window(cuda):
@@ -695,8 +734,8 @@ def test_spec_path_launches_no_kernel_on_the_card(cuda):
     XLA specs: on the card the effect runs their plain versions, with no
     hand-written kernel, in the frame loop and in the bootstrap. The
     production path with the same f32 nets launches its kernels (a C=68
-    render a bootstrap step, a C=4 render and a fill a frame) and agrees
-    with the spec at 64^2, 3 steps: mean SSIM >= 0.999."""
+    render a bootstrap step, a C=4 render, a fill and a finish a frame)
+    and agrees with the spec at 64^2, 3 steps: mean SSIM >= 0.999."""
     from kbe_torch.config import EffectConfig, ZoomSettings
     from kbe_torch.data import demo_scene_image
     from kbe_torch.ops.image_ops import ssim
@@ -713,9 +752,10 @@ def test_spec_path_launches_no_kernel_on_the_card(cuda):
             num_steps=steps, **kw), device=cuda)
         S.LAUNCHES.clear()
         D.LAUNCHES.clear()
+        F.LAUNCHES.clear()
         frames[name] = fn(models, image).float() / 255.0
         torch.cuda.synchronize()
-        counts = {**S.LAUNCHES, **D.LAUNCHES}
+        counts = {**S.LAUNCHES, **D.LAUNCHES, **F.LAUNCHES}
         if name == "spec":
             assert counts == {}
         else:
@@ -723,7 +763,7 @@ def test_spec_path_launches_no_kernel_on_the_card(cuda):
                 "fill", "zee", "degrid", "count", "place", "sum")},
                 **{f"{k}/c68": 2 for k in (
                     "fill", "zee", "degrid", "count", "place", "sum")},
-                "discfill": steps}
+                "discfill": steps, "finish": steps}
     scores = [float(ssim(frames["production"][i:i + 1],
                          frames["spec"][i:i + 1])) for i in range(steps)]
     assert sum(scores) / steps >= 0.999, scores

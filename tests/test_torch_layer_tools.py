@@ -101,8 +101,7 @@ def test_frame_stages_compose_to_render_frames(scene):
         want = scene["fn"].render_frames(scene["state"])
     assert torch.equal(report["frames"], want)
     assert [r["stage"] for r in report["stages"]] == [
-        "splat", "fill", "quantise", "crop", "resize", "round", "stack",
-        "wait"]
+        "splat", "fill", "finish", "wait"]
     assert report["poses"] == STEPS
     for key in ("fill_middle_pose", "fill_dolly_c2"):
         fill = report[key]

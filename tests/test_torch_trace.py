@@ -33,10 +33,11 @@ PARENTS = {
     **{f"bootstrap/{s}": "front_end/bootstrap"
        for s in ("inputs", "context", "splat68", "median", "inpaint",
                  "unproject")},
-    **{f"frame/{s}": "pose_loop"
-       for s in ("splat", "count", "fill", "quantise", "crop", "resize",
-                 "round")},
-    "pose_loop/stack": "pose_loop",
+    **{f"frame/{s}": "pose_loop" for s in ("splat", "count", "fill",
+                                            "finish")},
+    # the plain finish's steps (the CPU's path; the card's is one kernel)
+    **{f"frame/{s}": "frame/finish"
+       for s in ("quantise", "crop", "resize", "round")},
 }
 
 
@@ -155,6 +156,7 @@ def test_counts_equal_what_path_stats_finds(run):
     assert counts["hole_pixels"] > 0
     assert counts["bytes_to_host"] == run["frames_on"].nbytes
     assert "effect_builds" not in counts  # the second video of its shape
+    assert "finish_kernel_frames" not in counts  # the plain finish here
 
 
 def test_dolly_builds_once_has_no_bootstrap_and_profiler_trace_counts(

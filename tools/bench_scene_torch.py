@@ -34,7 +34,7 @@ from kbe_torch.config import CameraConfig, EffectConfig, \
     ZoomSettings  # noqa: E402
 from kbe_torch.data import demo_scene_image  # noqa: E402
 from kbe_torch.device import card_name, resolve_device  # noqa: E402
-from kbe_torch.ops import discfill, nms, splat  # noqa: E402
+from kbe_torch.ops import discfill, finish, nms, splat  # noqa: E402
 from kbe_torch.pipeline.kenburns import build_effect_fn, \
     create_models  # noqa: E402
 from kbe_torch.train.checkpoint import find_bench_weights, \
@@ -46,7 +46,7 @@ MIXES = {"all_bf16": (torch.bfloat16, torch.bfloat16),
          "all_f32": (torch.float32, torch.float32)}
 PRODUCTION = "depth_f32"
 # the hand-written kernels' names on the device timeline
-KERNEL_NAMES = ("splat_", "discfill", "nms_kernel")
+KERNEL_NAMES = ("splat_", "discfill", "nms_kernel", "finish_kernel")
 
 
 def load_models(checkpoint, device, mix: str = PRODUCTION, seed: int = 0):
@@ -129,8 +129,9 @@ def timeit(fn, dev: torch.device, reps: int = 5,
 def kernel_launches(fn) -> dict:
     """The hand-written kernels that one call of ``fn`` launches, as the
     wrappers count them (``splat.LAUNCHES``, ``discfill.LAUNCHES``,
-    ``nms.LAUNCHES``); empty on the CPU."""
-    counters = (splat.LAUNCHES, discfill.LAUNCHES, nms.LAUNCHES)
+    ``nms.LAUNCHES``, ``finish.LAUNCHES``); empty on the CPU."""
+    counters = (splat.LAUNCHES, discfill.LAUNCHES, nms.LAUNCHES,
+                finish.LAUNCHES)
     before = [collections.Counter(c) for c in counters]
     fn()
     counts = {}

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the splat's front half, its accumulation, the fill, the greedy NMS
-and the splat's gradient of a kbe_torch tree on the card.
+"""Time the splat's front half, its accumulation, the fill, the frame's
+finish, the greedy NMS and the splat's gradient of a kbe_torch tree on the
+card.
 
     python tools/kernel_times.py [--tree DIR] [--sets 5] [--reps 20]
-        [--only front,accumulate,fill,nms,grad]
+        [--only front,accumulate,fill,finish,nms,grad]
 
 Imports ``kbe_torch`` from ``DIR`` (default: this checkout), so one call
 can time two versions of the kernels in turns on one card, for example
@@ -26,6 +27,9 @@ grad, h, w)``. The inputs are those of ``chip_smoke.py`` (its
   (p)  C=4, 65,536 points of a 1024^2 grid on one pixel (accumulation);
   (c)  the fill of the (a) render, K=128, the default ROI;
   (c2) the fill of the (a2) render, dolly's ROI (open disocclusions);
+  (k)  the finish of the (c) fill's frame, the default move's crop, and
+       (k2) of the (c2) fill's frame, dolly's crop (``finish_cuda``; null
+       for a tree that has no finish kernel);
   (w)  the NMS of (w)'s 512^2 forward: the RPN's five sets of 512 at 0.7
        and the box set of 256 at 0.5, sorted and padded as the model
        hands them over (the synthetic item's canvas, seeded weights);
@@ -36,7 +40,7 @@ grad, h, w)``. The inputs are those of ``chip_smoke.py`` (its
        multiply-and-FMA route's range, where the tree has one).
 Prints the card's name and power limit, then one JSON line: the median over
 ``--sets`` of the mean ms of ``--reps`` calls (CUDA events); for the front
-half, the NMS and the gradient also, from ``torch.profiler`` over
+half, the finish, the NMS and the gradient also, from ``torch.profiler`` over
 ``--reps`` calls, the device ms a call in its own kernels; for the front
 half its kernels apart and its device span (from its first kernel's start
 to its last one's end, the median over the calls); and whether the
@@ -69,8 +73,17 @@ def device_span_ms(cs, fn, reps: int) -> float:
 
 
 def splat_times(cs, args, only, med):
-    """The front half, the accumulation and the fill (see above)."""
+    """The front half, the accumulation, the fill and the finish (see
+    above)."""
+    import importlib.util
+
     import torch
+    from kbe_torch.config import EffectConfig, ZoomSettings
+    from kbe_torch.ops import discfill as D
+    from kbe_torch.ops import splat as S
+    from kbe_torch.pipeline.kenburns import fill_roi_of
+
+    has_finish = importlib.util.find_spec("kbe_torch.ops.finish") is not None
     size = cs.SIZE
     shift = torch.tensor([-9.5, 6.25, -30.0])
     xyz, payload, valid = cs.make_cloud(3, 4, seed=1, shift=shift)
@@ -154,24 +167,57 @@ def splat_times(cs, args, only, med):
         equal[name] = bool(torch.equal(
             S.accumulate_cuda(x, v, p, q, deg, size, size),
             S.accumulate_cuda(x, v, p, q, deg, size, size)))
-    for name, sc, q, zoom, effect in () if "fill" not in only else (
-            ("fill", scene, pose, ZoomSettings.default_3d(size, size),
-             EffectConfig()),
-            ("fill_dolly", scene1, pose1,
-             ZoomSettings.default_dolly(size, size), EffectConfig(dolly=True))):
+    finish = {}
+    for name, sc, q, zoom, effect in () if not only & {"fill", "finish"} \
+            else (("fill", scene, pose, ZoomSettings.default_3d(size, size),
+                   EffectConfig()),
+                  ("fill_dolly", scene1, pose1,
+                   ZoomSettings.default_dolly(size, size),
+                   EffectConfig(dolly=True))):
         render, existing = S.render_posed(sc, q, size, size)
         depth = (render[..., 3:4] * (existing > 0.0)).contiguous()
         render = render.contiguous()
         roi = fill_roi_of(size, size, zoom, effect)
-        times[name] = med(lambda: D.fill_cuda(render, depth, 128, roi))
+        if "fill" in only:
+            times[name] = med(lambda: D.fill_cuda(render, depth, 128, roi))
+        if "finish" in only and has_finish:
+            finish[name.replace("fill", "finish")] = finish_row(
+                cs, args, med, D.fill_cuda(render, depth, 128, roi), zoom)
     out = {"front_ms": front_ms, "front_device_ms": front_dev,
            "front_device_span_ms": front_span,
            "front_kernel_device_ms": front_kernels, "ms": times,
            "accumulate_run_to_run_equal": equal}
+    if "finish" in only:
+        # a tree without the kernel finishes with the plain chain's launches
+        out["finish"] = finish if has_finish else None
     if "front" in only:
         out["front"] = ("front_cuda" if hasattr(S, "front_cuda")
                         else "zee_cuda + degrid_cuda")
     return out
+
+
+def finish_row(cs, args, med, filled, zoom) -> dict:
+    """Kernel ``finish`` on a filled frame under ``zoom``'s crop, checked
+    against the plain chain: call ms, device ms and its bound (the crop's
+    window read once, 12 B a pixel, and the frame written, 3 B a pixel)."""
+    import torch
+    from kbe_torch.ops import finish as F
+    from kbe_torch.pipeline.kenburns import frame_taps
+
+    h, w = filled.shape[0], filled.shape[1]
+    taps = frame_taps(h, w, zoom, filled.device)
+    plan = F.finish_plan(taps)
+    out = torch.empty((h, w, 3), dtype=torch.uint8, device=filled.device)
+    fn = lambda: F.finish_cuda(filled, plan, out)
+    nbytes = cs.finish_bytes(taps, h, w)
+    return {"ms": med(fn),
+            "device_ms": statistics.median(
+                cs.device_ms(fn, args.reps, ("finish_kernel",))[0]
+                for _ in range(args.sets)),
+            "bound_ms": cs.bound(nbytes, 0)[0], "bytes": nbytes,
+            "tile": list(F.TILE),
+            "equal_to_plain": bool(torch.equal(fn(), F.finish_plain(filled,
+                                                                    taps)))}
 
 
 def nms_times(cs, args, med):
@@ -246,7 +292,8 @@ def main() -> int:
     parser.add_argument("--tree", default=HERE)
     parser.add_argument("--sets", type=int, default=5)
     parser.add_argument("--reps", type=int, default=20)
-    parser.add_argument("--only", default="front,accumulate,fill,nms,grad",
+    parser.add_argument("--only",
+                        default="front,accumulate,fill,finish,nms,grad",
                         help="comma-separated groups to time")
     args = parser.parse_args()
     only = set(args.only.split(","))
@@ -271,7 +318,7 @@ def main() -> int:
                                  for _ in range(args.sets))
 
     out = {"tree": tree}
-    if only & {"front", "accumulate", "fill"}:
+    if only & {"front", "accumulate", "fill", "finish"}:
         out.update(splat_times(cs, args, only, med))
     if "nms" in only:
         out.update(nms_times(cs, args, med))

@@ -9,10 +9,11 @@ bench scene: the counterpart of the frame-body splits of
 **The frame by stage.** ``render_frame`` runs the effect's
 ``frame_stages`` (``kenburns.build_effect_fn``) in order: ``splat``
 (``render_posed``: the six splat kernels), ``fill`` (the depth mask and
-``fill_disocclusion_pallas`` in the ROI: the ``discfill`` kernel),
-``quantise``, ``crop`` (``crop_rect_subpix`` and its rounding), ``resize``
-(``resize_bilinear``) and ``round`` (the final round and uint8 cast); then
-``render_frames`` stacks the frames (``stack``). For each stage: host ms
+``fill_disocclusion_pallas`` in the ROI: the ``discfill`` kernel) and
+``finish`` (``ops/finish.py``: the ``finish`` kernel, quantise, crop,
+resize and round in one launch, on the card; the plain chain on the CPU).
+``render_frames`` writes each frame into the video's buffer; the tool's
+loop stacks its frames after its clock stops. For each stage: host ms
 a frame in the loop (``loop_split``: the loop run as ``render_frames``
 runs it, each stage call timed on the host clock less one clock read
 (``clock_read_us``: on a sandboxed host a read can cost tens of µs), no
@@ -112,12 +113,12 @@ def clock_read_s(reads: int = 20000) -> float:
 def loop_split(fn, state, dev, clock_s: float = 0.0):
     """One run of the pose loop as ``render_frames`` runs it, its stages
     timed on the host clock as they come, with no synchronise between
-    them: ([host ms of each of ``fn.frame_stages``, of the stack and of
-    the final synchronise, the device work still queued when the host is
-    done], the frames). ``clock_s``, one clock read (``clock_read_s``), is
-    taken off each interval."""
+    them: ([host ms of each of ``fn.frame_stages`` and of the final
+    synchronise, the device work still queued when the host is done], the
+    frames, stacked once the clock has stopped). ``clock_s``, one clock
+    read (``clock_read_s``), is taken off each interval."""
     names = len(fn.frame_stages)
-    times = [0.0] * (names + 2)
+    times = [0.0] * (names + 1)
     frames = []
     for i in range(state.poses.shape[0]):
         x = (state, state.poses[i])
@@ -128,13 +129,9 @@ def loop_split(fn, state, dev, clock_s: float = 0.0):
             x = out if isinstance(out, tuple) else (out,)
         frames.append(x[0])
     t0 = time.perf_counter()
-    frames = torch.stack(frames)
-    t1 = time.perf_counter()
     synchronize(dev)
-    t2 = time.perf_counter()
-    times[names] = t1 - t0 - clock_s
-    times[names + 1] = t2 - t1 - clock_s
-    return [t * 1e3 for t in times], frames
+    times[names] = time.perf_counter() - t0 - clock_s
+    return [t * 1e3 for t in times], torch.stack(frames)
 
 
 def profile_frame(size: int = 1024, steps: int = 75, checkpoint="find",
@@ -155,11 +152,7 @@ def profile_frame(size: int = 1024, steps: int = 75, checkpoint="find",
     rows = []
     inputs = [(state, state.poses[i]) for i in range(n)]
     with torch.inference_mode():
-        stages = list(fn.frame_stages) + [
-            ("stack", lambda *frames: torch.stack(frames))]
-        for name, stage in stages:
-            if name == "stack":
-                inputs = [tuple(a[0] for a in inputs)]
+        for name, stage in fn.frame_stages:
 
             def run(stage=stage, inputs=inputs):
                 return [stage(*a) for a in inputs]

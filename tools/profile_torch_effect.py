@@ -13,7 +13,8 @@ CUDA activities, the front end and the pose loop each under a profiler of
 its own. Prints the wall time of the profiled run split into front end
 and pose loop (host clock around ``torch.cuda.synchronize``), the kernel
 launches of the run and of the loop alone (per frame), the device time of
-the top kernels and of every hand-written one (``splat_*``, ``discfill``),
+the top kernels and of every hand-written one (``splat_*``, ``discfill``,
+``finish_kernel``),
 and the device's busy and idle shares (busy = the union of kernel
 intervals on the device timeline).
 ``--mode`` picks one of the inference modes that ``chip_smoke.py`` drives
@@ -138,7 +139,7 @@ def main() -> int:
         print(f"{t / 1e3:10.3f} {t / busy:6.3f} {n:6d}  {name}")
     print("hand-written kernels, device ms over the run (mean us a call):")
     for name, (t, n) in ranked:
-        if "splat_" in name or "discfill" in name:
+        if any(k in name for k in ("splat_", "discfill", "finish_kernel")):
             print(f"{t / 1e3:10.3f} {t / busy:6.3f} {n:6d}  {name} "
                   f"({t / n:.3f})")
     return 0
