@@ -29,13 +29,15 @@ def readings(cell: dict, seeds, videos: int, device, log=None):
 
     from benchmark import harness, judge, traffic
     from benchmark.reference import effect as E
+    from benchmark.reference.nets import model_flags
     from benchmark.reference.weights import make_weights
 
     device = torch.device(device)
     config = cell["config_data"]
-    weights = make_weights(config["weights_seed"], device)
+    models = model_flags(config)
+    weights = make_weights(config["weights_seed"], device, models)
     pipe = harness.build_pipeline(config, weights, device)
-    nets = E.load_nets(weights, config["precision"], device)
+    nets = E.load_nets(weights, config["precision"], device, models)
     out = []
     for seed in seeds:
         t0 = time.perf_counter()

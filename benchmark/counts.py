@@ -43,39 +43,74 @@ def least_seconds(nbytes: float) -> float:
     return nbytes / PEAKS["hbm_bytes_per_s"]
 
 
+def _coverage_flops(nets) -> list:
+    """A tally, kept by forward hooks, of the FLOPs of the coverage
+    convolutions that the partial convs of ``nets`` run: each an all-ones
+    (out, in, k, k) convolution, 2 FLOPs a multiply-add, as
+    ``FlopCounterMode`` counts it."""
+    tally = [0.0]
+
+    def hook(module, args, result):
+        tally[0] += 2.0 * result[0].numel() * args[0].shape[1] \
+            * module.kernel ** 2
+
+    for net in nets:
+        for m in net.modules():
+            if isinstance(m, N.PartialConv):
+                m.register_forward_hook(hook)
+    return tally
+
+
 def net_flops(height: int, width: int, config: dict) -> Dict[str, float]:
-    """{precision: FLOPs} of one video's net calls at (H, W): the depth
-    nets once, ContextNet and Inpaint once a bootstrap step. Counted with
-    ``FlopCounterMode`` over the reference's nets on the meta device."""
+    """{precision: FLOPs} of one video's net calls at (H, W), for the nets
+    that the configuration's ``models`` builds: the depth nets once
+    (``refine`` with its shortcuts where residual), ContextNet and the
+    inpainting net once a bootstrap step, and with ``inpaint_depth`` the
+    second pair too. Counted with ``FlopCounterMode`` over the reference's
+    nets on the meta device.
+
+    A partial conv counts its weighted convolution and not its coverage
+    convolution: the coverage computes a count of the mask, not the
+    model's arithmetic. Were it counted, a kernel that counts the mask
+    from one channel would do less work for the same model FLOPs, and the
+    count would no longer stand for the work."""
     precision = config["precision"]
+    models = N.model_flags(config)
     nets = {name: net.to(E.DTYPES[precision[kind]])
             for (name, _, kind), net in zip(
-                N.NETS, N.build_nets("meta").values())}
+                N.nets_for(models), N.build_nets("meta", models).values())}
     f = dict(dtype=torch.float32, device="meta")
     image = torch.zeros(1, height, width, 3, **f)
     resized = torch.zeros(1, *resized_shape(
         height, width, max(height, width) // 2), 3, **f)
     effect = config["effect"]
     steps = 2 if effect["inpaint"] and not effect["dolly"] else 0
+    pairs = [("context", "inpaint")]
+    if models["inpaint_depth"]:
+        pairs.append(("context_depth", "inpaint_depth"))
+    coverage = _coverage_flops(nets.values())
     out = {}
 
-    def count(kind, fn):
+    def count(kind, net, *args):
+        before = coverage[0]
         with FlopCounterMode(display=False) as fc:
-            result = fn()
+            result = nets[net](*args)
         key = precision[kind]
-        out[key] = out.get(key, 0.0) + float(fc.get_total_flops())
+        out[key] = out.get(key, 0.0) + float(fc.get_total_flops()) - (
+            coverage[0] - before)
         return result
 
     with torch.no_grad():
-        disp = count("depth", lambda: nets["disparity"](
-            resized, nets["semantics"](resized)))
-        count("depth", lambda: nets["refine"](image, disp))
+        disp = count("depth", "disparity", resized,
+                     count("depth", "semantics", resized))
+        count("depth", "refine", image, disp)
         for _ in range(steps):
-            count("inpaint", lambda: nets["context"](
-                image, torch.zeros(1, height, width, 1, **f)))
-            count("inpaint", lambda: nets["inpaint"](
-                torch.zeros(1, height, width, 68, **f),
-                torch.zeros(1, height, width, 1, **f)))
+            for context, inpaint in pairs:
+                count("inpaint", context, image,
+                      torch.zeros(1, height, width, 1, **f))
+                count("inpaint", inpaint,
+                      torch.zeros(1, height, width, 68, **f),
+                      torch.zeros(1, height, width, 1, **f))
     return out
 
 

@@ -18,7 +18,9 @@ photograph in, one video of uint8 frames out on the host. A run:
    ``fn.render_frames``, the copy to the host), each ended by a
    synchronise and timed on the host's clock, then profiles a short slice
    of the same loop on the stream's next requests, and one pass of
-   ``fn.frame_stages`` over the stages that the cell's metric files name;
+   ``fn.frame_stages`` over the stages that the cell's metric files name,
+   and last records the program's own spans and counters over a fixed
+   slice of photographs, each of the mix's shapes alike (``program.py``);
 3. the peak of device memory, read before anything else runs;
 4. ``correct``: a sample of the window's videos, drawn from the seed,
    against ``reference/`` on the same photographs and weights, once the
@@ -28,6 +30,11 @@ The metrics are read by the files ``metrics/<name>.py``, each a function
 ``value(record)`` of the run's record, which returns None where it finds
 nothing to read; a file that reads a stage of ``fn.frame_stages`` names it
 in ``STAGES``, and only those stages are profiled.
+
+The configuration names the nets the pipeline builds in its ``models``
+(``reference/nets.py::model_flags``): ``KenBurnsPipeline.create``'s flags,
+each false where it is left out. The weights, the reference and the FLOP
+count follow the same flags.
 """
 
 from __future__ import annotations
@@ -45,8 +52,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from benchmark import judge, traffic
+from benchmark import judge, program, traffic
 from benchmark.reference import effect as ref_effect
+from benchmark.reference.nets import model_flags
 from benchmark.reference.weights import make_weights
 
 HERE = Path(__file__).resolve().parent
@@ -116,8 +124,8 @@ def _sync(device: torch.device) -> None:
 
 
 def build_pipeline(config: dict, weights: dict, device):
-    """The port's pipeline as users create it, in the configuration's
-    precisions, its nets loaded with ``weights``."""
+    """The port's pipeline as users create it, with the configuration's
+    nets in its precisions, loaded with ``weights``."""
     from kbe_torch.config import CameraConfig, EffectConfig
     from kbe_torch.pipeline import KenBurnsPipeline
 
@@ -126,7 +134,8 @@ def build_pipeline(config: dict, weights: dict, device):
         effect=EffectConfig(**config["effect"]),
         camera=CameraConfig(**config["camera"]),
         dtype=dtypes[config["precision"]["inpaint"]],
-        depth_dtype=dtypes[config["precision"]["depth"]], device=device)
+        depth_dtype=dtypes[config["precision"]["depth"]], device=device,
+        **model_flags(config))
     for name, net in zip(pipe.models._fields, pipe.models):
         if net is not None:
             net.load_state_dict(weights[name])
@@ -340,11 +349,12 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
     the checks."""
     device = torch.device(device)
     config = cell["config_data"]
+    models = model_flags(config)
     checks = cell["checks"]
     parts = {"start_s": time.perf_counter() - t_start}
     t = time.perf_counter()
     pipe = build_pipeline(config, make_weights(config["weights_seed"],
-                                               device), device)
+                                               device, models), device)
     parts["pipeline_s"] = time.perf_counter() - t
     t = time.perf_counter()
     for req in traffic.warm_ups(cell["mix"], seed):
@@ -374,14 +384,19 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
         if wanted:
             staged = next(reqs)
             record["stages"] = _stage_pass(pipe, staged, device, wanted)
+        t = time.perf_counter()
+        record["program"] = program.program_slice(
+            pipe, program.slice_requests(cell["mix"]), device)
+        record["program_s"] = time.perf_counter() - t
     del pipe
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
     tally = judge.Tally()
     # the same draw again, for the reference's own copy of the nets
-    nets = ref_effect.load_nets(make_weights(config["weights_seed"], device),
-                                config["precision"], device)
+    nets = ref_effect.load_nets(
+        make_weights(config["weights_seed"], device, models),
+        config["precision"], device, models)
     t_ref = time.perf_counter()
     for req, frames in sample.items:
         tally.add(frames, ref_effect.video(nets, req.image, config, device))
@@ -426,5 +441,7 @@ def result_line(manifest: dict, workload: str, trace: bool, record: dict,
         device["window_s"] = prof["window_s"]
         line["breakdown"] = {"device_ops": prof["device_ops"],
                              "idle_gaps": prof["idle_gaps"]}
+    if trace and "program" in record:
+        line["program"] = record["program"]
     line["checks"] = record["checks"]
     return line

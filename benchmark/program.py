@@ -6,7 +6,14 @@ inside ``KenBurnsPipeline.__call__``, read on the profiler's one clock.
 the others through the real ``pipe(req.image)``, with tracing on, under
 ``torch.profiler`` with CPU and CUDA, and returns the ``program`` record
 that the metric files ``depth_nets_ms``, ``bootstrap_ms``,
-``loop_idle_share`` and ``to_host_gbps`` read, every number a video:
+``loop_device_ms`` and ``to_host_gbps`` read, every number a video.
+``slice_requests`` picks its requests: a warm-up, then each of the mix's
+shapes equally often, the same photographs in every run (the stream of
+``SLICE_SEED``), so that the readings follow the code and not the run's
+draw of shapes and scenes (dolly's fill takes 6 to 30 device ms a video as
+a scene's holes go).
+
+The record:
 
 - ``spans``: for each span name (``kbe/`` left off), its calls, its host
   self ms (its host time less that of the spans inside it), and the
@@ -14,12 +21,6 @@ that the metric files ``depth_nets_ms``, ``bootstrap_ms``,
 - ``counters``: the tracer's counts;
 - ``device_ms``, and ``attributed_share``, the share of it charged to a
   span;
-- ``loop_busy_ms``: the part of the ``pose_loop`` spans' host time in
-  which some device operation ran, and ``profiled_loop_ms``, that host
-  time;
-- ``loop_ms``: the loop's host time on the same requests with tracing on
-  and no profiler (``loop_host_ms``), since the profiler's cost a launch
-  about doubles the loop's host time and leaves its device time as it is;
 - ``idle_gaps``: the ten longest stretches of the slice in which no
   device operation ran, [innermost span at its middle, s], or "between".
 
@@ -37,10 +38,11 @@ Run alone, on a card, from the root of a checkout:
     python3 benchmark/program.py --workload <cell> --seed <n> [--out <file>]
 
 It sets the cell up as ``harness.run_cell`` does (the nets, one warm-up
-video a shape), times the stream's first requests with tracing off and on
-(``tracing_cost``), runs the slice on them, prints one JSON line (the
-record, the four metrics and the cost of tracing) and writes it to
-``--out`` too.
+video a shape, from ``--seed``), times the slice's requests
+(``slice_requests``) with
+tracing off and on (``tracing_cost``), runs the slice on them, prints one
+JSON line (the record, the four metrics and the cost of tracing) and
+writes it to ``--out`` too.
 """
 
 from __future__ import annotations
@@ -53,13 +55,13 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
-import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PROGRAM_VIDEOS = 2      # recorded after one warm-up video
+PROGRAM_VIDEOS = 2      # at least, recorded after one warm-up video
 COST_REPS = 8           # turns of the requests in each state of tracing
-METRICS = ("depth_nets_ms", "bootstrap_ms", "loop_idle_share",
+SLICE_SEED = 0          # the slice's photographs, the same in every run
+METRICS = ("depth_nets_ms", "bootstrap_ms", "loop_device_ms",
            "to_host_gbps")
 
 
@@ -135,11 +137,9 @@ def read_profile(prof) -> dict:
 
 
 def summarise(spans: Sequence[tuple], ops: Sequence[tuple],
-              counts: Dict[str, int], videos: int,
-              loop_ms: Optional[float] = None) -> dict:
+              counts: Dict[str, int], videos: int) -> dict:
     """The ``program`` record (see the module's doc) of the spans, the
-    charged device operations and the counts of ``videos`` videos, with
-    ``loop_ms`` (``loop_host_ms``'s) as it is."""
+    charged device operations and the counts of ``videos`` videos."""
     from benchmark.harness import _busy_intervals
 
     if not videos:
@@ -163,9 +163,6 @@ def summarise(spans: Sequence[tuple], ops: Sequence[tuple],
             attributed_us += e - s
             table[name]["device_ms"] += (e - s) / 1e3 * per
             table[name]["launches"] += per
-    loops = [(s, e) for name, s, e in spans if name == "pose_loop"]
-    loop_busy_us = sum(e - s for lo, hi in loops
-                       for s, e in _busy_intervals(timeline, lo, hi))
     gaps = []
     videos_at = [(s, e) for name, s, e in spans if name == "video"]
     if videos_at:
@@ -185,9 +182,6 @@ def summarise(spans: Sequence[tuple], ops: Sequence[tuple],
         "device_ms": device_us / 1e3 * per,
         "attributed_share": (attributed_us / device_us if device_us
                              else None),
-        "loop_ms": loop_ms,
-        "profiled_loop_ms": sum(e - s for s, e in loops) / 1e3 * per,
-        "loop_busy_ms": loop_busy_us / 1e3 * per,
         "idle_gaps": gaps,
     }
 
@@ -221,40 +215,32 @@ def profile_videos(pipe, reqs, device) -> dict:
     return dict(read_profile(prof), counters=counts, videos=len(reqs) - 1)
 
 
-def loop_host_ms(pipe, reqs, device) -> float:
-    """The host ms a video of ``fn.render_frames`` (the ``kbe/pose_loop``
-    span and all inside it) over ``reqs``, with tracing on and no profiler:
-    each front end ended by a synchronise (on the real path its
-    ``scene_of`` has synchronised already: the kept points' count is a
-    host int), and the loop timed until it returns, as its span is. Run it before any profile in the process: launches stay
-    slower after a session has ended."""
-    from benchmark.harness import _effect_fn
+def slice_requests(mix: dict) -> list:
+    """The slice's requests, drawn in turn from the mix's stream of
+    ``SLICE_SEED``: the first as the warm-up, then the first ones of each
+    of the mix's shapes, each shape as often as the others and
+    ``PROGRAM_VIDEOS`` in all or one a shape, whichever is more, in the
+    mix's order of shapes."""
+    from benchmark import traffic
 
-    from kbe_torch.utils import logging as trace
-
-    device = torch.device(device)
-    ms = 0.0
-    with trace.tracing():
-        for req in reqs:
-            fn = _effect_fn(pipe, req)
-            state = fn.front_end(pipe.models, torch.as_tensor(
-                np.asarray(req.image, np.float32), device=device)[None])
-            _sync(device)
-            t = time.perf_counter()
-            fn.render_frames(state)
-            ms += (time.perf_counter() - t) * 1e3
-            _sync(device)
-    trace.reset_counters()
-    return ms / len(reqs)
+    reqs = traffic.stream(mix, SLICE_SEED)
+    shapes = list(dict.fromkeys(tuple(s) for s in mix["shapes"]))
+    each = -(-PROGRAM_VIDEOS // len(shapes))
+    picked: Dict[tuple, list] = {shape: [] for shape in shapes}
+    first = next(reqs)
+    while any(len(got) < each for got in picked.values()):
+        req = next(reqs)
+        got = picked[(req.height, req.width)]
+        if len(got) < each:
+            got.append(req)
+    return [first] + [req for shape in shapes for req in picked[shape]]
 
 
 def program_slice(pipe, reqs, device) -> dict:
-    """The ``program`` record of ``reqs`` (``profile_videos``'), with the
-    loop's host time unprofiled (``loop_host_ms`` of ``reqs[1:]``)."""
-    loop_ms = loop_host_ms(pipe, reqs[1:], device)
+    """The ``program`` record of ``reqs`` (``profile_videos``')."""
     raw = profile_videos(pipe, reqs, device)
     return summarise(raw["spans"], raw["ops"], raw["counters"],
-                     raw["videos"], loop_ms)
+                     raw["videos"])
 
 
 def tracing_cost(pipe, reqs, device) -> dict:
@@ -296,6 +282,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
 
     from benchmark import harness, traffic
+    from benchmark.reference.nets import model_flags
     from benchmark.reference.weights import make_weights
 
     if not torch.cuda.is_available():
@@ -306,11 +293,11 @@ def main(argv=None) -> int:
     cell = harness.load_cell(manifest, args.workload)
     config = cell["config_data"]
     pipe = harness.build_pipeline(
-        config, make_weights(config["weights_seed"], device), device)
+        config, make_weights(config["weights_seed"], device,
+                             model_flags(config)), device)
     for req in traffic.warm_ups(cell["mix"], args.seed):
         pipe(req.image)
-    stream = traffic.stream(cell["mix"], args.seed)
-    reqs = [next(stream) for _ in range(PROGRAM_VIDEOS + 1)]
+    reqs = slice_requests(cell["mix"])
     cost = tracing_cost(pipe, reqs[1:], device)
     record = {"program": program_slice(pipe, reqs, device)}
     line = {"workload": args.workload, "seed": args.seed,

@@ -6,17 +6,21 @@ Stages: depth (``resize_to_max`` -> Semantics -> Disparity -> Refine ->
 normalise -> depth -> points, and the ``depth_range`` anchor); the
 inpainting bootstrap at steps 0 and 1 (skipped for dolly): ContextNet ->
 68-channel splat -> binary median-5 -> Inpaint -> unproject, each appended
-as a grid valid where the splat left no coverage; then a frame a pose:
-splat of the cloud's rgb + depth, disocclusion fill inside the region the
-crop reads, uint8 quantise, sub-pixel crop, resize and round.
+as a grid valid where the inpainting net reports no coverage (a grid-net
+reports its input mask, a partial-conv net the mask it propagated); with
+``inpaint_depth`` a second ContextNet and net inpaint a second payload of
+the same cloud, and their disparity replaces the first net's; then a frame
+a pose: splat of the cloud's rgb + depth, disocclusion fill inside the
+region the crop reads, uint8 quantise, sub-pixel crop, resize and round.
 
 ``configs/<name>.json`` gives the effect's settings (``effect``,
-``camera``, ``zoom``, ``precision``); the nets' weights come as state
-dicts. The reference switches TF32 off itself for all it computes, and
-puts the flags back as it found them, so that it never takes the
-precision of whoever ran before it in the process. ``precision="tf32"``
-runs the f32 depth nets with TF32 allowed on the card: the benchmark's
-control (on the CPU, where TF32 does not exist, it changes nothing).
+``camera``, ``zoom``, ``precision``, and ``models``, the nets it builds:
+``nets.model_flags``); the nets' weights come as state dicts. The
+reference switches TF32 off itself for all it computes, and puts the flags
+back as it found them, so that it never takes the precision of whoever ran
+before it in the process. ``precision="tf32"`` runs the f32 depth nets
+with TF32 allowed on the card: the benchmark's control (on the CPU, where
+TF32 does not exist, it changes nothing).
 """
 
 from __future__ import annotations
@@ -65,13 +69,15 @@ def crop_region(height: int, width: int, zoom, fill_roi: bool = True):
 
 
 def load_nets(weights: Dict[str, dict], precision: Dict[str, str],
-              device) -> Dict[str, torch.nn.Module]:
-    """The nets with ``weights`` ({net: state dict}) in the configuration's
-    precisions, copied, so that nothing is shared with whoever else holds
-    the state dicts."""
-    nets = N.build_nets("meta")
+              device, models: Dict[str, bool]
+              ) -> Dict[str, torch.nn.Module]:
+    """The nets that ``models`` (``nets.model_flags``) builds, with
+    ``weights`` ({net: state dict}) in the configuration's precisions,
+    copied, so that nothing is shared with whoever else holds the state
+    dicts."""
+    nets = N.build_nets("meta", models)
     out = {}
-    for name, _, kind in N.NETS:
+    for name, _, kind in N.nets_for(models):
         dt = DTYPES[precision[kind]]
         sd = {k: v.to(device=device, dtype=dt, copy=True)
               for k, v in weights[name].items()}
@@ -123,6 +129,29 @@ def _flow_cloud(disparity, camera, focal, threshold):
     return depth, points.reshape(1, h * w, 3)
 
 
+def _inpainting(net, context_net, points, shift, image_n, disp_n, focal,
+                baseline):
+    """One inpainting net on the payload (image_n, disp_n, its context) of
+    the cloud ``points`` splatted at ``shift``: (image_n, disparity_n,
+    existing), ``existing`` the net's mask where it reports one, else the
+    coverage it was given."""
+    h, w = image_n.shape[1], image_n.shape[2]
+    context = context_net(image_n, disp_n)
+    payload = torch.cat([image_n, disp_n, context], dim=-1).reshape(h * w, -1)
+    f = torch.full((), focal, dtype=torch.float32, device=image_n.device)
+    zero = torch.zeros(3, dtype=torch.float32, device=image_n.device)
+    render, weight = O.splat((points + shift)[0].float().contiguous(),
+                             payload.float().contiguous(), zero, f,
+                             f * baseline, h, w)
+    render, weight = render[None], weight[None]
+    existing = (weight > 0.0).float()
+    existing = existing * O.median_filter_binary(existing, 5)
+    out = net(render * existing, existing)
+    if isinstance(net, N.PartialInpaint):
+        return out
+    return out + (existing,)
+
+
 def _inpainted_grid(nets, image, disparity, shift, camera, threshold):
     """One bootstrap step's grid (xyz, rgb + disparity + depth, valid)."""
     h, w = image.shape[1], image.shape[2]
@@ -130,17 +159,13 @@ def _inpainted_grid(nets, image, disparity, shift, camera, threshold):
     _, points = _flow_cloud(disparity, camera, focal, threshold)
     image_n, img_stats = N.normalize_sample(image)
     disp_n, disp_stats = N.normalize_sample(disparity)
-    context = nets["context"](image_n, disp_n)
-    payload = torch.cat([image_n, disp_n, context], dim=-1).reshape(h * w, -1)
-    f = torch.full((), focal, dtype=torch.float32, device=image.device)
-    zero = torch.zeros(3, dtype=torch.float32, device=image.device)
-    render, weight = O.splat((points + shift)[0].float().contiguous(),
-                             payload.float().contiguous(), zero, f,
-                             f * camera["baseline"], h, w)
-    render, weight = render[None], weight[None]
-    existing = (weight > 0.0).float()
-    existing = existing * O.median_filter_binary(existing, 5)
-    img_n, dsp_n = nets["inpaint"](render * existing, existing)
+    inputs = (points, shift, image_n, disp_n, focal, camera["baseline"])
+    img_n, dsp_n, existing = _inpainting(nets["inpaint"], nets["context"],
+                                         *inputs)
+    if "inpaint_depth" in nets:
+        # the dual colour/depth mode: the disparity of the second pair
+        _, dsp_n, _ = _inpainting(nets["inpaint_depth"],
+                                  nets["context_depth"], *inputs)
     img = torch.clamp(N.denormalize_sample(img_n, img_stats), 0.0, 1.0)
     dsp = torch.clamp(N.denormalize_sample(dsp_n, disp_stats), min=0.0)
     depth, pts = _flow_cloud(dsp, camera, focal, threshold)

@@ -1,14 +1,34 @@
-"""The effect's nets in plain PyTorch: a frozen copy of the port's
-``models/layers.py``, ``semantics.py``, ``gridnet.py`` and ``refine.py``
-(the grid-net ``Inpaint`` and the plain ``Refine``), with nothing imported
-from the port. Attribute names are the port's, so one state dict loads into
-either. Forwards take and return NHWC; the convolutions run in the dtype of
-their weights.
+"""The effect's nets in plain PyTorch, with nothing imported from the port:
+copies of the port's ``models/layers.py``, ``semantics.py``, ``gridnet.py``
+and ``refine.py`` (the grid-net ``Inpaint``, the plain ``Refine`` and the
+residual ``RefinePretrained``), and ``PartialConv`` / ``PartialInpaint``,
+written from the published partial-convolution inpainting net (pierlj/
+ken-burns-effect ``models/partial_inpainting.py``, built on NVIDIA's
+``PartialConv2d``, Liu et al., arXiv:1804.07723). Attribute names are the
+port's, so one state dict loads into either. Forwards take and return
+NHWC; the convolutions run in the dtype of their weights.
+
+``PartialConv`` departs from pierlj's all-f32 code in its types and in one
+order of operations, and nowhere else:
+
+- only the weighted convolution runs in the configuration's ``inpaint``
+  precision (bf16 in the production mix). The mask, its coverage, the
+  ratio, the PReLUs, the bias, the re-mask and the residual sums stay f32;
+  the bias and the slopes are the bf16 values of the loaded weights;
+- the weighted convolution runs without its bias, which joins after the
+  renormalisation: ``(conv(x * mask) * ratio + bias) * new_mask``. NVIDIA's
+  code adds the bias in the convolution and subtracts it again before the
+  ratio, which is the same value rounded twice more.
+
+The coverage is NVIDIA's ``multi_channel`` one: an all-ones (out, in, k, k)
+convolution of the mask, so every output channel carries the same count.
+``model_flags`` reads a configuration's ``models`` and ``nets_for`` lists
+the nets those flags build.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -252,18 +272,19 @@ class ContextNet(nn.Module):
 
 
 class _RefineCore(nn.Module):
-    def __init__(self):
+    def __init__(self, residual: bool):
         super().__init__()
-        self.image_one = Basic("conv-relu-conv", (3, 24, 24), residual=False)
+        self.image_one = Basic("conv-relu-conv", (3, 24, 24),
+                               residual=residual)
         self.image_two = Downsample((24, 48, 48))
         self.image_thr = Downsample((48, 96, 96))
         self.disparity_one = Basic("conv-relu-conv", (1, 96, 96),
-                                   residual=False)
+                                   residual=residual)
         self.disparity_two = Upsample((192, 96, 96))
         self.disparity_thr = Upsample((144, 48, 48))
         self.disparity_fou = Basic("conv-relu-conv", (72, 24, 24),
-                                   residual=False)
-        self.refine = Basic("conv-relu-conv", (24, 24, 1), residual=False)
+                                   residual=residual)
+        self.refine = Basic("conv-relu-conv", (24, 24, 1), residual=residual)
 
     def forward(self, image, disparity):
         dt = self.refine.conv2.weight.dtype
@@ -283,23 +304,215 @@ class _RefineCore(nn.Module):
 class Refine(nn.Module):
     """(B, H, W, 3), disparity (B, H/4, W/4, 1) -> (B, H, W, 1) f32."""
 
+    residual = False
+
     def __init__(self):
         super().__init__()
-        self.core = _RefineCore()
+        self.core = _RefineCore(self.residual)
 
     def forward(self, image, disparity):
         return self.core(image, disparity)
 
 
-# the effect's nets, in the order of the port's ``PipelineModels``, and
-# which of the configuration's two precisions each runs in
-NETS = (("semantics", Semantics, "depth"), ("disparity", Disparity, "depth"),
-        ("refine", Refine, "depth"), ("context", ContextNet, "inpaint"),
-        ("inpaint", Inpaint, "inpaint"))
+class RefinePretrained(Refine):
+    """The released refinement checkpoint's layout: residual Basic blocks,
+    with a 1x1 ``shortcut`` conv wherever a block changes its channel
+    count."""
+
+    residual = True
 
 
-def build_nets(device="meta") -> dict:
-    """{name: net} of the effect's nets, their weights not yet made (on the
-    meta device, which allocates nothing)."""
+class _F32PReLU(PReLU):
+    """A PReLU on f32 activations, its slopes read in the activations'
+    type."""
+
+    def forward(self, x):
+        return F.prelu(x, self.weight.to(x.dtype))
+
+
+class PartialConv(nn.Module):
+    """NVIDIA's ``PartialConv2d`` (``multi_channel``, ``return_mask``):
+    ``forward(x, mask)`` with ``mask`` the shape of ``x`` returns (output,
+    updated mask), the mask with the output's channels."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3,
+                 stride: int = 1):
+        super().__init__()
+        self.kernel, self.stride = kernel, stride
+        self.conv = nn.Conv2d(cin, cout, kernel, stride=stride,
+                              padding=kernel // 2, bias=False)
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor):
+        cout, cin, k, _ = self.conv.weight.shape
+        ones = torch.ones((cout, cin, k, k), dtype=torch.float32,
+                          device=x.device)
+        coverage = F.conv2d(mask.float(), ones, stride=self.stride,
+                            padding=k // 2)
+        ratio = true_div(float(cin * k * k), coverage + 1e-8)
+        new_mask = torch.clamp(coverage, 0.0, 1.0)
+        ratio = ratio * new_mask
+        raw = self.conv((x * mask).to(self.conv.weight.dtype))
+        out = (raw.float() * ratio + self.bias.float()[None, :, None, None]) \
+            * new_mask
+        return out, new_mask
+
+
+class PBasic(nn.Module):
+    """A Basic block of partial convs, always residual: the identity, or a
+    1x1 partial conv of the block's input under an all-ones mask."""
+
+    def __init__(self, kind: str, channels: Tuple[int, int, int]):
+        super().__init__()
+        c0, c1, c2 = channels
+        self.kind = kind
+        if kind == "relu-conv-relu-conv":
+            self.prelu1 = _F32PReLU(c0)
+        self.conv1 = PartialConv(c0, c1)
+        self.prelu2 = _F32PReLU(c1)
+        self.conv2 = PartialConv(c1, c2)
+        self.identity = c0 == c2
+        if not self.identity:
+            self.shortcut = PartialConv(c0, c2, kernel=1)
+
+    def forward(self, x, mask):
+        h = self.prelu1(x) if self.kind == "relu-conv-relu-conv" else x
+        h, mask = self.conv1(h, mask)
+        h, mask = self.conv2(self.prelu2(h), mask)
+        if self.identity:
+            return h + x, mask
+        return h + self.shortcut(x, torch.ones_like(x))[0], mask
+
+
+class PDownsample(nn.Module):
+    def __init__(self, channels: Tuple[int, int, int]):
+        super().__init__()
+        c0, c1, c2 = channels
+        self.prelu1 = _F32PReLU(c0)
+        self.conv1 = PartialConv(c0, c1, stride=2)
+        self.prelu2 = _F32PReLU(c1)
+        self.conv2 = PartialConv(c1, c2)
+
+    def forward(self, x, mask):
+        h, mask = self.conv1(self.prelu1(x), mask)
+        return self.conv2(self.prelu2(h), mask)
+
+
+class PUpsample(nn.Module):
+    """Bilinear 2x of the features and of the mask, the mask thresholded at
+    0.5, then PReLU, partial conv, PReLU, partial conv."""
+
+    def __init__(self, channels: Tuple[int, int, int]):
+        super().__init__()
+        c0, c1, c2 = channels
+        self.prelu1 = _F32PReLU(c0)
+        self.conv1 = PartialConv(c0, c1)
+        self.prelu2 = _F32PReLU(c1)
+        self.conv2 = PartialConv(c1, c2)
+
+    def forward(self, x, mask):
+        h = upsample2x(x)
+        mask = (upsample2x(mask) > 0.5).float()
+        h, mask = self.conv1(self.prelu1(h), mask)
+        return self.conv2(self.prelu2(h), mask)
+
+
+class PartialInpaint(nn.Module):
+    """The inpainting grid-net of partial convs: data68 (no mask channel),
+    masks -> (image, disparity, the mask of row 0), normalised, NHWC f32.
+    Where the lattice adds two streams, their masks merge by elementwise
+    min."""
+
+    def __init__(self, rows: Tuple[int, ...] = (32, 64, 128, 256),
+                 in_channels: int = 68):
+        super().__init__()
+        self.rows = tuple(rows)
+        n = len(rows)
+        self.stem = PBasic("conv-relu-conv", (in_channels, rows[0], rows[0]))
+        for r in range(1, n):
+            self.add_module(f"down{r}x0",
+                            PDownsample((rows[r - 1], rows[r], rows[r])))
+        for col in (1, 2, 3):
+            for r in range(n):
+                self.add_module(f"blk{r}x{col}", PBasic(
+                    "relu-conv-relu-conv", (rows[r], rows[r], rows[r])))
+        for r in range(1, n):
+            self.add_module(f"down{r}x1",
+                            PDownsample((rows[r - 1], rows[r], rows[r])))
+        for col in (2, 3):
+            for r in range(n - 1):
+                self.add_module(f"up{r}x{col}",
+                                PUpsample((rows[r + 1], rows[r], rows[r])))
+        self.head_image = PBasic("conv-relu-conv", (rows[0], rows[0], 3))
+        self.head_disparity = PBasic("conv-relu-conv", (rows[0], rows[0], 1))
+
+    def forward(self, data, masks):
+        n = len(self.rows)
+        x = data.float().permute(0, 3, 1, 2)
+        mask = masks.float().permute(0, 3, 1, 2).expand(x.shape)
+        col, cmask = [None] * n, [None] * n
+        col[0], cmask[0] = self.stem(x, mask)
+        for r in range(1, n):
+            col[r], cmask[r] = getattr(self, f"down{r}x0")(col[r - 1],
+                                                          cmask[r - 1])
+        for r in range(n):
+            col[r], cmask[r] = getattr(self, f"blk{r}x1")(col[r], cmask[r])
+            if r != 0:
+                d, dm = getattr(self, f"down{r}x1")(col[r - 1], cmask[r - 1])
+                col[r] = col[r] + d
+                cmask[r] = torch.minimum(cmask[r], dm)
+        for c in (2, 3):
+            for r in range(n - 1, -1, -1):
+                col[r], cmask[r] = getattr(self, f"blk{r}x{c}")(col[r],
+                                                                cmask[r])
+                if r != n - 1:
+                    u, um = getattr(self, f"up{r}x{c}")(col[r + 1],
+                                                        cmask[r + 1])
+                    hh, ww = col[r].shape[2], col[r].shape[3]
+                    col[r] = col[r] + crop_to(u, hh, ww)
+                    cmask[r] = torch.minimum(cmask[r], crop_to(um, hh, ww))
+        image, _ = self.head_image(col[0], cmask[0])
+        disparity, _ = self.head_disparity(col[0], cmask[0])
+        return (_nhwc_f32(image), _nhwc_f32(disparity),
+                _nhwc_f32(cmask[0][:, :1]))
+
+
+# ``KenBurnsPipeline.create``'s flags, by their names; each false where a
+# configuration's ``models`` leaves it out
+MODEL_FLAGS = ("pretrained_refine", "partial_inpainting", "inpaint_depth")
+
+
+def model_flags(config: dict) -> Dict[str, bool]:
+    """The configuration's ``models``: {flag: bool} of ``MODEL_FLAGS``."""
+    given = config.get("models") or {}
+    unknown = sorted(set(given) - set(MODEL_FLAGS))
+    if unknown:
+        raise ValueError(f"unknown models flags {unknown}; known: "
+                         f"{MODEL_FLAGS}")
+    return {flag: bool(given.get(flag, False)) for flag in MODEL_FLAGS}
+
+
+def nets_for(models: Dict[str, bool]) -> tuple:
+    """(name, class, precision kind) of the nets that ``models`` (a
+    ``model_flags``) builds, in the order of the port's ``PipelineModels``:
+    the five nets, ``refine`` and ``inpaint`` swapped for their variants as
+    the flags say, then ``context_depth`` and ``inpaint_depth`` where
+    ``inpaint_depth`` is set."""
+    inpaint = PartialInpaint if models["partial_inpainting"] else Inpaint
+    nets = (("semantics", Semantics, "depth"),
+            ("disparity", Disparity, "depth"),
+            ("refine", RefinePretrained if models["pretrained_refine"]
+             else Refine, "depth"),
+            ("context", ContextNet, "inpaint"),
+            ("inpaint", inpaint, "inpaint"))
+    if models["inpaint_depth"]:
+        nets += (("context_depth", ContextNet, "inpaint"),
+                 ("inpaint_depth", inpaint, "inpaint"))
+    return nets
+
+
+def build_nets(device, models: Dict[str, bool]) -> dict:
+    """{name: net} of the nets that ``models`` builds, their weights not
+    yet made (on the meta device, which allocates nothing)."""
     with torch.device(device):
-        return {name: cls() for name, cls, _ in NETS}
+        return {name: cls() for name, cls, _ in nets_for(models)}

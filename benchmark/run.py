@@ -7,7 +7,8 @@ from the root of a checkout, on a machine with the cards the cell asks for.
 Prints, as the last line of standard output, one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics, or
 with ``--trace 1`` its per-layer metrics), ``device``, with ``--trace 1``
-``breakdown``, and last ``checks``, each number compared with its limit;
+``breakdown`` and ``program`` (the port's own spans and counters a video,
+``program.py``), and last ``checks``, each number compared with its limit;
 the same numbers are the last lines of standard error. Exits non-zero,
 printing no result, where no CUDA card is found, where the cell asks for
 more cards than there are, where ``kbe_torch`` is missing, or where JAX or
@@ -76,6 +77,9 @@ def main(argv=None) -> int:
     print("run.py: set-up " + ", ".join(
         f"{k} {v:.3f}" for k, v in record["setup_parts"].items()),
         file=sys.stderr)
+    if "program_s" in record:
+        print(f"run.py: the program's slice took {record['program_s']:.3f} s",
+              file=sys.stderr)
     print(f"run.py: {record['compared_videos']} videos compared in "
           f"{record['reference_s']:.3f} s; correct {record['correct']}",
           file=sys.stderr)

@@ -77,3 +77,60 @@ def test_bf16_flops_scale_with_the_pixels():
     c3 = _config("kbe3d-1024-prod")
     assert counts.net_flops(64, 64, c3)["bfloat16"] == \
         4 * counts.net_flops(32, 32, c3)["bfloat16"]
+
+
+def _with_models(models):
+    config = _config("kbe3d-1024-prod")
+    config["models"] = models
+    return config
+
+
+def test_the_residual_refine_adds_its_shortcuts_by_hand():
+    # 1x1 shortcuts: image_one 3 -> 24 and disparity_fou 72 -> 24 and
+    # refine 24 -> 1 at H x W, disparity_one 1 -> 96 at the disparity's
+    # H/4 x W/4
+    h = w = 16
+    plain = counts.net_flops(h, w, _config("kbe3d-1024-prod"))
+    residual = counts.net_flops(h, w, _with_models({"pretrained_refine":
+                                                     True}))
+    shortcuts = 2 * (h * w * 24 * 3 + (h // 4) * (w // 4) * 96
+                     + h * w * 24 * 72 + h * w * 24)
+    assert residual["float32"] - plain["float32"] == shortcuts
+    assert residual["bfloat16"] == plain["bfloat16"]
+
+
+def test_a_partial_conv_counts_its_weighted_convolution_alone():
+    # every weighted conv of the partial-conv net, counted by hand from
+    # its input and output: 2 FLOPs a multiply-add, no coverage
+    import torch
+
+    from benchmark.reference import nets as N
+
+    h = w = 32
+    with torch.device("meta"):
+        net = N.PartialInpaint()
+    weighted = []
+
+    def hook(module, args, out):
+        weighted.append(2 * out.numel() * args[0].shape[1]
+                        * module.kernel_size[0] * module.kernel_size[1])
+
+    for m in net.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.register_forward_hook(hook)
+    with torch.no_grad():
+        net(torch.zeros(1, h, w, 68, device="meta"),
+            torch.zeros(1, h, w, 1, device="meta"))
+    # ContextNet: 3x3 convs 4 -> 64 and 64 -> 64
+    context = 2 * h * w * 64 * 9 * (4 + 64)
+    partial = counts.net_flops(h, w, _with_models({"partial_inpainting":
+                                                    True}))
+    assert partial["bfloat16"] == 2 * (context + sum(weighted))
+    # the dual colour/depth mode runs both pairs in each bootstrap step
+    dual = counts.net_flops(h, w, _with_models({"partial_inpainting": True,
+                                                "inpaint_depth": True}))
+    assert dual["bfloat16"] == 2 * partial["bfloat16"]
+    assert dual["float32"] == partial["float32"]
+    grid_dual = counts.net_flops(h, w, _with_models({"inpaint_depth": True}))
+    assert grid_dual["bfloat16"] == 2 * counts.net_flops(
+        h, w, _config("kbe3d-1024-prod"))["bfloat16"]

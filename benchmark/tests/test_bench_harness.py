@@ -1,6 +1,8 @@
 """The harness: its manifest and files, its refusal to run without a card,
 and a whole run on the CPU at a tiny size, sound and with the timed path
-broken underneath. The ``gpu`` test runs a cell on the card."""
+broken underneath, with the default nets and with a configuration whose
+``models`` names the residual refine, the partial-conv inpainting net and
+the dual colour/depth pair. The ``gpu`` test runs a cell on the card."""
 
 import json
 import re
@@ -12,12 +14,14 @@ from pathlib import Path
 import pytest
 import torch
 
-from benchmark import harness, judge
+from benchmark import harness, judge, program
 
 ROOT = Path(__file__).resolve().parents[2]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 ALL_CELLS = ("kbe3d.square-1024", "dolly.square-1024", "kbe3d.photos-mixed")
+ALL_NETS = {"pretrained_refine": True, "partial_inpainting": True,
+            "inpaint_depth": True}
 
 
 @pytest.fixture(scope="module")
@@ -84,9 +88,13 @@ def test_run_without_a_card_exits_nonzero_and_prints_nothing(tmp_path):
     assert "no CUDA card" in out.stderr
 
 
-def _tiny(manifest, workload):
+def _tiny(manifest, workload, models=None):
+    """The cell at 3 poses and 64 px, comparing 2 videos; with ``models``,
+    a temporary configuration that names those nets."""
     cell = harness.load_cell(manifest, workload)
     cell["config_data"]["effect"]["num_steps"] = 3
+    if models is not None:
+        cell["config_data"]["models"] = dict(models)
     cell["mix"] = dict(cell["mix"],
                        shapes=[[64, 64], [48, 64]][:len(cell["mix"]
                                                         ["shapes"])])
@@ -102,12 +110,14 @@ def cpu_threads():
     torch.set_num_threads(old)
 
 
-@pytest.mark.parametrize("trace", [False, True])
-def test_a_run_on_the_cpu_is_correct_and_reports(manifest, trace,
-                                                 cpu_threads):
-    workload = "kbe3d.photos-mixed"
-    rec = harness.run_cell(_tiny(manifest, workload), 2**31 + 5, 1.0, trace,
-                           "cpu", time.perf_counter())
+@pytest.mark.parametrize("trace,workload,models", [
+    (False, "kbe3d.photos-mixed", None), (True, "kbe3d.photos-mixed", None),
+    (True, "kbe3d.square-1024", ALL_NETS)],
+    ids=["trace0", "trace1", "trace1-all-nets"])
+def test_a_run_on_the_cpu_is_correct_and_reports(manifest, trace, workload,
+                                                 models, cpu_threads):
+    rec = harness.run_cell(_tiny(manifest, workload, models), 2**31 + 5, 1.0,
+                           trace, "cpu", time.perf_counter())
     assert rec["correct"] and rec["attempted"] >= 1 and rec["failed"] == 0
     assert rec["compared_videos"] == min(2, rec["attempted"])
     assert rec["numbers"] == {"mean_abs_levels": 0.0, "off8_ppm": 0.0}
@@ -117,6 +127,24 @@ def test_a_run_on_the_cpu_is_correct_and_reports(manifest, trace,
             "video_mfu"} if trace else {"frames_per_s", "video_ms.p90",
                                         "setup_s"}
     assert want <= set(line["metrics"])
+    if not trace:
+        assert "program" not in line
+        return
+    # the program's record, which the four metrics read: on the CPU no
+    # device operation runs, so each of them reads nothing here and is
+    # left out of the line; on the card they are reported
+    prog = line["program"]
+    assert prog is rec["program"] and prog["videos"] == 2
+    assert prog["counters"]["bytes_to_host"] > 0
+    for name in ("front_end/semantics", "front_end/disparity",
+                 "front_end/refine", "front_end/bootstrap", "pose_loop",
+                 "to_host"):
+        assert prog["spans"][name]["calls"] >= 1, name
+    # two bootstrap steps, each one inpainting net, or two in the dual mode
+    assert prog["spans"]["bootstrap/inpaint"]["calls"] == (
+        4 if models and models["inpaint_depth"] else 2)
+    assert not set(program.METRICS) & set(line["metrics"])
+    assert rec["program_s"] > 0
 
 
 def _broken(monkeypatch, alter):
@@ -159,13 +187,18 @@ class _Stale:
         return out
 
 
-@pytest.mark.parametrize("fault", ["frame_altered", "stale_video"])
-@pytest.mark.parametrize("trace", [False, True])
+@pytest.mark.parametrize("fault,trace,models", [
+    ("frame_altered", False, None), ("frame_altered", True, None),
+    ("stale_video", False, None), ("stale_video", True, None),
+    ("frame_altered", False, ALL_NETS), ("frame_altered", True, ALL_NETS)],
+    ids=["frame_altered-0", "frame_altered-1", "stale_video-0",
+         "stale_video-1", "frame_altered-0-all-nets",
+         "frame_altered-1-all-nets"])
 def test_a_broken_timed_path_is_not_correct(manifest, monkeypatch, fault,
-                                            trace, cpu_threads):
+                                            trace, models, cpu_threads):
     _broken(monkeypatch, _frame_altered if fault == "frame_altered"
             else _Stale())
-    cell = _tiny(manifest, "kbe3d.square-1024")
+    cell = _tiny(manifest, "kbe3d.square-1024", models)
     # a stale video shows from the window's first request on: the set-up
     # warms up on a photograph the window never sends
     rec = harness.run_cell(cell, 77, 1.0, trace, "cpu", time.perf_counter())
@@ -220,3 +253,26 @@ def test_a_cell_on_the_card(trace):
     line = json.loads(out.stdout.strip().splitlines()[-1])
     assert line["correct"] and line["device"]["platform"] == "gpu"
     assert line["metrics"]
+    if trace:
+        assert set(program.METRICS) <= set(line["metrics"])
+        assert line["program"]["device_ms"] > 0
+
+
+@pytest.mark.gpu
+def test_the_all_nets_configuration_on_the_card(manifest):
+    """``kbe3d.square-1024`` with every net that ``models`` can name, at
+    its full size over a short window: correct against the reference, and
+    the four program metrics read, ``bootstrap_ms`` above the default
+    nets' (both pairs of partial-conv nets)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cell = harness.load_cell(manifest, "kbe3d.square-1024")
+    cell["config_data"]["models"] = dict(ALL_NETS)
+    rec = harness.run_cell(cell, 2**31 + 101, 4.0, True, "cuda:0",
+                           time.perf_counter())
+    line = harness.result_line(manifest, "kbe3d.square-1024", True, rec, 1)
+    assert line["correct"], line["checks"]
+    assert set(program.METRICS) <= set(line["metrics"])
+    spans = line["program"]["spans"]
+    assert spans["bootstrap/inpaint"]["calls"] == 4
+    assert line["metrics"]["bootstrap_ms"]["value"] > 100.0

@@ -1,8 +1,9 @@
 """The program slice (``benchmark/program.py``) and the four metric files
 that read its record: a hand-made slice read to the numbers worked by
-hand, a slice of a tiny effect on the CPU, the traced run of a cell with
-tracing off in its own slices, and on the card, where each device
-operation is charged."""
+hand, the slice's choice of requests, the spans that the all-nets path
+opens read whole, a slice of a tiny effect on the CPU, the traced run of a
+cell with tracing off in its own slices, and on the card, where each
+device operation is charged."""
 
 import json
 import time
@@ -50,8 +51,7 @@ def _read(name, record):
 def test_a_hand_made_slice_reads_as_worked_by_hand():
     """Two videos' worth: every number is halved."""
     rec = program.summarise(SPANS, OPS, {"videos": 2,
-                                         "bytes_to_host": 3_200_000}, 2,
-                            loop_ms=0.3)
+                                         "bytes_to_host": 3_200_000}, 2)
     record = {"program": rec}
     assert rec["device_ms"] == pytest.approx(0.300)
     assert rec["attributed_share"] == pytest.approx(590 / 600)
@@ -65,11 +65,8 @@ def test_a_hand_made_slice_reads_as_worked_by_hand():
     assert _read("depth_nets_ms", record) == pytest.approx(0.0775)
     # (20 + 100 + 5) us over two videos
     assert _read("bootstrap_ms", record) == pytest.approx(0.0625)
-    # 150 of the loop's 400 us busy under the profiler; a loop of 300 us a
-    # video unprofiled, 75 of them busy
-    assert rec["profiled_loop_ms"] == pytest.approx(0.2)
-    assert rec["loop_busy_ms"] == pytest.approx(0.075)
-    assert _read("loop_idle_share", record) == pytest.approx(75.0)
+    # (100 + 50) us launched in the loop's frames, over two videos
+    assert _read("loop_device_ms", record) == pytest.approx(0.075)
     # 1.6 MB in 80 us
     assert _read("to_host_gbps", record) == pytest.approx(20.0)
     assert rec["idle_gaps"][:4] == [
@@ -86,15 +83,69 @@ def test_the_metrics_read_nothing_where_there_is_nothing_to_read():
                                           {"bytes_to_host": 8}, 1)}
     assert _read("bootstrap_ms", dolly) is None
     assert _read("depth_nets_ms", dolly) == pytest.approx(0.155)
-    no_device = {"program": program.summarise(SPANS, [], {"videos": 1}, 1,
-                                              loop_ms=0.4)}
-    unprofiled_loop_unknown = {"program": program.summarise(SPANS, OPS, {},
-                                                            1)}
-    assert _read("loop_idle_share", unprofiled_loop_unknown) is None
+    no_device = {"program": program.summarise(SPANS, [], {"videos": 1}, 1)}
     for record in ({}, {"program": {}}, no_device,
                    {"program": program.summarise([], [], {}, 1)}):
         for name in program.METRICS:
             assert _read(name, record) is None, (name, record)
+
+
+@pytest.mark.parametrize("shapes,want", [
+    ([[1024, 1024]], [(1024, 1024)] * 2),
+    ([[1024, 1024], [768, 1024], [1024, 768], [680, 1024], [576, 1024]],
+     [(1024, 1024), (768, 1024), (1024, 768), (680, 1024), (576, 1024)])],
+    ids=["one-shape", "five-shapes"])
+def test_the_slice_reads_each_shape_alike_on_the_same_photographs(shapes,
+                                                                 want):
+    """The mix's shapes in its order after a warm-up, none twice, and the
+    same photographs in every run: the stream of ``SLICE_SEED``."""
+    mix = {"shapes": shapes, "loop": "closed", "clients": 1}
+    reqs = program.slice_requests(mix)
+    assert [(r.height, r.width) for r in reqs[1:]] == want
+    assert reqs[0].index == 0
+    assert len({r.index for r in reqs}) == len(reqs)
+    for r, again in zip(reqs, program.slice_requests(mix)):
+        assert r.index == again.index and (r.image == again.image).all()
+        assert (r.image == traffic.scene_image(
+            r.height, r.width, [program.SLICE_SEED, r.index])).all()
+
+
+def test_the_metrics_read_every_span_of_the_all_nets_path(cpu_threads):
+    """The spans that the residual refine, the partial-conv nets and the
+    dual colour/depth pair open on the CPU, each given one device
+    operation of 1 us: ``bootstrap_ms`` reads every bootstrap span of
+    both pairs, ``depth_nets_ms`` the three depth nets, ``loop_device_ms``
+    the loop and its frames."""
+    from kbe_torch.config import EffectConfig
+    from kbe_torch.pipeline import KenBurnsPipeline
+
+    pipe = KenBurnsPipeline.create(0, effect=EffectConfig(num_steps=2),
+                                   device="cpu", pretrained_refine=True,
+                                   partial_inpainting=True,
+                                   inpaint_depth=True)
+    mix = {"shapes": [[64, 64]], "loop": "closed", "clients": 1}
+    raw = program.profile_videos(pipe, program.slice_requests(mix), "cpu")
+    spans, videos = raw["spans"], raw["videos"]
+    ops = [("op", s, s + 1, name) for name, s, _ in spans]
+    rec = program.summarise(spans, ops, raw["counters"], videos)
+    names = [name for name, _, _ in spans]
+
+    def per_video_ms(wanted):
+        return sum(1 for name in names if wanted(name)) / 1e3 / videos
+
+    # two bootstrap steps, each a context net and an inpainting net for
+    # the colour and again for the depth
+    assert rec["spans"]["bootstrap/inpaint"]["calls"] == 4
+    assert rec["spans"]["bootstrap/context"]["calls"] == 4
+    assert _read("bootstrap_ms", {"program": rec}) == pytest.approx(
+        per_video_ms(lambda n: n == "front_end/bootstrap"
+                     or n.startswith("bootstrap/")))
+    assert _read("depth_nets_ms", {"program": rec}) == pytest.approx(
+        per_video_ms(lambda n: n in ("front_end/semantics",
+                                     "front_end/disparity",
+                                     "front_end/refine")))
+    assert _read("loop_device_ms", {"program": rec}) == pytest.approx(
+        per_video_ms(lambda n: n == "pose_loop" or n.startswith("frame/")))
 
 
 def test_innermost_finds_the_deepest_span_or_none():
@@ -125,7 +176,6 @@ def test_a_slice_of_a_tiny_effect_on_the_cpu(cpu_threads):
                                 "cpu")
     assert not trace.tracing_on() and trace.counters() == {}
     assert rec["videos"] == 2 and rec["device_ms"] == 0.0
-    assert rec["loop_ms"] > 0.0
     assert rec["spans"]["video"]["calls"] == 1.0
     assert rec["spans"]["frame/fill"]["calls"] == 2.0
     assert rec["spans"]["bootstrap/inpaint"]["calls"] == 2.0
@@ -158,13 +208,15 @@ def test_each_operation_is_charged_to_its_span_on_the_card():
     built."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    from benchmark.reference.nets import model_flags
     from benchmark.reference.weights import make_weights
 
     device = torch.device("cuda:0")
     cell = harness.load_cell(harness.load_manifest(), "kbe3d.square-1024")
     config = cell["config_data"]
     pipe = harness.build_pipeline(
-        config, make_weights(config["weights_seed"], device), device)
+        config, make_weights(config["weights_seed"], device,
+                             model_flags(config)), device)
     seed = 2**31 + 123
     for req in traffic.warm_ups(cell["mix"], seed):
         pipe(req.image)
