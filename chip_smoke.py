@@ -19,6 +19,14 @@ Phases, in order; any failure raises and the script exits non-zero:
          the (c) fill's frame, the default move's crop, against the plain
          chain (bit-equal);
      (k2) the finish of the (c2) fill's frame, dolly's crop;
+     (m0) the partial conv's mask side (coverage, ratio, bias, re-mask)
+         of the partial-conv inpainting net at each of its shapes at
+         1024^2, bf16 and f32 results, masked and not, against the plain
+         chain (bit-equal);
+     (m) the same, timed, at the stem's shape (68 -> 32
+         channels at 1024^2, bf16) and (m3) at row 3's (256 channels at
+         128^2), channels-last as the net runs, against the plain chain
+         (bit-equal);
   4. main path: the 1024^2, 75-frame effect at the production precision mix
      (f32 depth nets, bf16 inpainting nets), seeded random weights; checks
      the frames and that every kernel ran (77 renders of six splat
@@ -38,7 +46,8 @@ Phases, in order; any failure raises and the script exits non-zero:
          fill, one launch each;
      (g) the inference modes at 1024^2, 9 steps, production precision mix,
          through ``KenBurnsPipeline.__call__``: dolly, 2D, pretrained
-         refine, partial conv, dual net, routed + the spec's whole-frame
+         refine, partial conv, dual net, partial conv with the dual net
+         (57 * 4 ``pconv`` launches), routed + the spec's whole-frame
          fill (``fill_impl='xla'``: the plain fill, no ``discfill``
          launch), delta, and the one-phase and fused fill schedules;
          frames and launch counts checked, the pose loop timed several
@@ -187,6 +196,7 @@ SPLAT_SRC = "kbe_torch/ops/csrc/splat.cu"
 FRONT_KERNELS = ("splat_fill", "splat_zee", "splat_degrid")
 FILL_SRC = "kbe_torch/ops/csrc/discfill.cu"
 FINISH_SRC = "kbe_torch/ops/csrc/finish.cu"
+PCONV_SRC = "kbe_torch/ops/csrc/pconv.cu"
 
 
 def log(*args):
@@ -628,6 +638,96 @@ def finish_phase(label, filled, zoom, rows, name="finish", **extra):
     rows.append(row)
 
 
+def pconv_case(c_in: int, c_out: int, kernel: int, stride: int, h: int,
+               w: int, dtype: str = "bfloat16", masked: bool = True):
+    """(kernel, plain, least bytes): the mask side of one partial conv of
+    the inpainting net on the card, its result in ``dtype``, channels-last
+    as the net runs it, on a seeded 0/1 mask with a hole (or none), through
+    kernel ``pconv`` and through the plain chain."""
+    import torch
+    from benchmark.pconv_counts import pconv_bytes
+    from kbe_torch.ops import pconv as P
+
+    g = torch.Generator().manual_seed(c_in + c_out + kernel + h)
+    pad = kernel // 2
+    ho, wo = P.out_size(h, kernel, stride, pad), P.out_size(w, kernel,
+                                                            stride, pad)
+    raw = (torch.randn(1, c_out, ho, wo, generator=g) * 20.0).to(
+        getattr(torch, dtype)).cuda().contiguous(
+            memory_format=torch.channels_last)
+    mask = None
+    if masked:
+        mask = (torch.rand(1, 1, h, w, generator=g) > 0.2).float()
+        mask[:, :, h // 3:h // 2, w // 4:3 * w // 4] = 0.0
+        mask = mask.cuda()
+    bias = torch.randn(c_out, generator=g).to(raw.dtype).cuda()
+    like = torch.empty((1,), device="cuda")
+
+    def run_kernel():
+        return P.mask_side_cuda(raw, mask, bias, c_in, (h, w), kernel,
+                                stride, pad)
+
+    def plain():
+        cov = P.coverage_plain(mask, c_in, (h, w), kernel, stride, pad, like)
+        return P.mask_side_plain(raw, cov, bias, float(c_in * kernel ** 2))
+
+    nbytes = pconv_bytes(c_out * ho * wo, (h * w if masked else 0) + ho * wo,
+                         dtype)
+    return run_kernel, plain, nbytes
+
+
+def pconv_shapes_phase():
+    """(m0) kernel ``pconv`` against its plain chain, bit for bit, at every
+    (C_in, C_out, k, stride, H, W) that ``PartialInpaint`` meets at
+    ``SIZE``^2: bf16 and f32 results, with a mask and without."""
+    from kbe_torch.models.partial_conv import net_pconv_shapes
+
+    cases = sorted({s[:6] for s in net_pconv_shapes(SIZE, SIZE)})
+    for c_in, c_out, k, stride, h, w in cases:
+        for dtype in ("bfloat16", "float32"):
+            for masked in (True, False):
+                kernel, plain, _ = pconv_case(c_in, c_out, k, stride, h, w,
+                                              dtype, masked)
+                (got, got_m), (want, want_m) = kernel(), plain()
+                what = (f"(m0) pconv {c_in}->{c_out} k{k} s{stride} {h}x{w} "
+                        f"{dtype} {'masked' if masked else 'no mask'}")
+                assert_equal(f"{what} output", got, want)
+                assert_equal(f"{what} new mask", got_m, want_m)
+    log(f"(m0) pconv: bit-equal to the plain chain at the net's "
+        f"{len(cases)} shapes at {SIZE}^2, bf16 and f32, masked and not "
+        f"({4 * len(cases)} cases)")
+
+
+def pconv_phase(label, name, c_in, c_out, stride, size, rows):
+    """``pconv_case``'s kernel (k 3, bf16) against its plain chain
+    (bit-equal), then timed, with the plain chain's time beside it."""
+    from kbe_torch.ops import pconv as P
+
+    kernel, plain, nbytes = pconv_case(c_in, c_out, 3, stride, size, size)
+    (got, got_m), (want, want_m) = kernel(), plain()
+    assert_equal(f"{label} output", got, want)
+    assert_equal(f"{label} new mask", got_m, want_m)
+    ms = timed(kernel, 20)
+    dev = device_ms(kernel, 20, ("pconv_kernel",))
+    pms = timed(plain, 5)
+    ho = got.shape[2]
+    b_ms, b_by = bound(nbytes, 0)
+    log(f"{label}: {c_in} -> {c_out} channels, stride {stride}, {size}^2 -> "
+        f"{ho}^2, bf16 channels-last, tiles of {P.tile_pixels(c_out)} "
+        f"pixels; bit-equal to the plain chain; kernel ms {ms:.4f} (device "
+        f"{dev[0]:.4f}), plain ms {pms:.4f}, bound {b_ms:.4f} ({nbytes} B)")
+    rows.append({
+        "name": name, "route": "cuda", "source": PCONV_SRC,
+        "replaces": None,
+        "replaces_note": "none: kbe_tpu computes a partial conv "
+                         "(models/partial_conv.py) in XLA",
+        "count_key": "pconv", "mode": "partial_inpainting",
+        "max_abs_err": 0.0, "ms": ms, "device_ms": dev[0],
+        "device_all_ms": dev[1], "plain_ms": pms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None, "bytes": nbytes,
+        "shape": [c_in, c_out, 3, stride, size, size]})
+
+
 def kernel_phases(rows, more):
     import torch
     from kbe_torch.ops import splat as S
@@ -681,6 +781,12 @@ def kernel_phases(rows, more):
         filled = D.fill_cuda(rend.contiguous(), depth, 128,
                              fill_roi_of(SIZE, SIZE, z, eff))
         finish_phase(label, filled, z, out_rows, **kw)
+    # (m0) the partial conv's mask side at each of the net's shapes; (m),
+    # (m3) timed at the stem's and row 3's shape
+    pconv_shapes_phase()
+    pconv_phase("(m) pconv, the stem", "pconv", 68, 32, 1, SIZE, more)
+    pconv_phase("(m3) pconv, row 3", "pconv/row3", 256, 256, 1, SIZE // 8,
+                more)
     # (d) run to run: two identical renders at each width
     for c, again in ((4, lambda: S.render_posed(scene, pose, SIZE, SIZE)),
                      (68, lambda: S.splat(pts, payload68.reshape(-1, 68),
@@ -827,22 +933,24 @@ def card_vs_cpu():
 
 
 def launch_counts():
-    from kbe_torch.ops import discfill, finish, nms, splat
+    from kbe_torch.ops import discfill, finish, nms, pconv, splat
 
     counts = dict(splat.LAUNCHES)
     counts.update(discfill.LAUNCHES)
     counts.update(nms.LAUNCHES)
     counts.update(finish.LAUNCHES)
+    counts.update(pconv.LAUNCHES)
     return counts
 
 
 def clear_launches():
-    from kbe_torch.ops import discfill, finish, nms, splat
+    from kbe_torch.ops import discfill, finish, nms, pconv, splat
 
     splat.LAUNCHES.clear()
     discfill.LAUNCHES.clear()
     nms.LAUNCHES.clear()
     finish.LAUNCHES.clear()
+    pconv.LAUNCHES.clear()
 
 
 def expect_counts(label, want):
@@ -1013,6 +1121,8 @@ MODES = (
     ("pretrained_refine", {}, {"pretrained_refine": True}, 2),
     ("partial_inpainting", {}, {"partial_inpainting": True}, 2),
     ("inpaint_depth", {}, {"inpaint_depth": True}, 4),
+    ("partial+dual", {}, {"partial_inpainting": True, "inpaint_depth": True},
+     4),
     ("routed+xla", {"splat_method": "routed", "fill_impl": "xla"}, {}, 2),
     ("delta", {"splat_method": "delta"}, {}, 2),
     ("fill_march_phase1=0", {"fill_march_phase1": 0}, {}, 2),
@@ -1027,6 +1137,7 @@ def mode_phases(size: int = SIZE, device: str = "cuda"):
     import torch
     from kbe_torch.config import EffectConfig, ZoomSettings
     from kbe_torch.data import demo_scene_image
+    from kbe_torch.models.partial_conv import net_pconv_shapes
     from kbe_torch.pipeline import KenBurnsPipeline
 
     on_card = device == "cuda"
@@ -1052,6 +1163,10 @@ def mode_phases(size: int = SIZE, device: str = "cuda"):
             want["discfill"] = MODE_STEPS
         if boot:
             want.update(splat_counts(68, boot))
+        if model_kw.get("partial_inpainting"):
+            # one partial-conv net a C=68 splat (colour, and with
+            # inpaint_depth the depth net too), each conv one launch
+            want["pconv"] = len(net_pconv_shapes(size, size)) * boot
         if on_card:
             expect_counts(f"(g) {name}", want)
         if (frames.shape != (MODE_STEPS, size, size, 3)

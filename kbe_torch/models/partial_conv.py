@@ -7,6 +7,27 @@ propagated by an all-ones convolution. ``PartialInpaint`` is the inpainting
 grid-net built from them, with masks merged by elementwise min wherever
 the lattice adds two streams.
 
+Every mask of ``PartialInpaint`` is the same in every channel: the stem's
+is one channel broadcast, an update gives one coverage to all output
+channels, and the min of two such masks and their bilinear 2x stay so. So
+the net carries each mask as one channel (B, 1, H, W), and a partial conv
+takes its coverage as the box sum of that channel times ``C_in``
+(``ops/pconv.py``), equal bit for bit to the all-ones convolution over
+``C_in`` copies for the 0/1 masks the net makes. A mask of ``C_in``
+channels takes the general path, on the CPU only: on CUDA it raises
+``ValueError``. The mask side (coverage, ratio, bias, re-mask) is the span
+``kbe/bootstrap/pconv_mask``; on CUDA, with no gradient wanted, it is one
+launch of kernel ``pconv`` (whose wrapper refuses, by ``ValueError``, what
+it cannot take, such as a mask that is not f32), else the plain chain.
+The span is named for the effect's bootstrap, where the net runs in the
+effect (inside ``kbe/bootstrap/inpaint``), because the benchmark's
+``bootstrap_ms`` counts device time by the ``bootstrap/`` prefix of the
+innermost span; a traced run of the net outside the effect (training,
+evaluation) shows it under that name too. The counters ``pconv_calls``, ``pconv_out_elems`` (B * C_out * H' *
+W') and ``pconv_mask_px`` (B * (H * W + H' * W'), one channel; a conv
+given no mask reads none and counts only its new one) count the model's
+shapes.
+
 Attribute names mirror the Flax tree (``conv1/conv/kernel`` and
 ``conv1/bias`` side by side), so ``state_dict_from_flax`` maps it
 mechanically. The modules take and return NCHW; ``PartialInpaint`` converts
@@ -15,8 +36,8 @@ at its NHWC boundary.
 Types, as the Flax modules have them: only the weighted convolution runs in
 the module's compute type (bf16 in the production mix). Its result times the
 f32 ratio promotes back to f32, so the mask, the coverage count (up to
-68 * 9 = 612), the ratio, the PReLUs and the residual sums are f32 in every
-mix. The PReLU slope is therefore read in the activation's type.
+256 * 9 = 2304), the ratio, the PReLUs and the residual sums are f32 in
+every mix. The PReLU slope is therefore read in the activation's type.
 """
 
 from __future__ import annotations
@@ -28,7 +49,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from kbe_torch.models.layers import crop_to, upsample2x
-from kbe_torch.ops.geometry import true_div
+from kbe_torch.ops import pconv
+from kbe_torch.utils.logging import count, span
 
 
 class _PReLU(nn.Module):
@@ -46,8 +68,10 @@ class _PReLU(nn.Module):
 
 class PartialConv(nn.Module):
     """Multi-channel partial convolution. ``forward(x, mask)`` returns
-    (output, updated mask), the mask broadcast to the output's channels;
-    ``mask=None`` means all ones."""
+    (output, updated mask). A mask (B, 1, H, W) stands for the same mask in
+    every input channel and gives a one-channel mask; a mask of ``x``'s
+    channels (CPU only), or ``mask=None`` (all ones), gives the updated
+    mask broadcast to the output's channels."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3,
                  stride: int = 1):
@@ -58,27 +82,44 @@ class PartialConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
-        k = self.kernel
-        in_ch = x.shape[1]
-        if mask is None:
-            mask = torch.ones_like(x)
-        mask = mask.to(x.dtype)
-        window = float(in_ch * k * k)
-        # coverage by an all-ones conv; no gradient flows through the mask
-        with torch.no_grad():
-            ones_k = torch.ones((1, in_ch, k, k), dtype=x.dtype,
-                                device=x.device)
-            coverage = F.conv2d(mask, ones_k, stride=self.stride,
-                                padding=k // 2)
-        # a tensor-by-tensor quotient: a scalar numerator would go through
-        # a reciprocal and miss the reference's ratio by an ulp
-        ratio = true_div(window, coverage + 1e-8)
-        new_mask = torch.clamp(coverage, 0.0, 1.0)
-        ratio = ratio * new_mask
-        raw = self.conv((x * mask).to(self.conv.weight.dtype))
-        # the bias joins after the renormalisation, then the re-mask
-        bias = self.bias.to(raw.dtype).view(1, -1, 1, 1)
-        out = (raw * ratio + bias) * new_mask
+        k, stride, pad = self.kernel, self.stride, self.kernel // 2
+        in_ch, in_hw = x.shape[1], tuple(x.shape[2:])
+        if mask is not None:
+            mask = mask.to(x.dtype)
+            x = x * mask
+        raw = self.conv(x.to(self.conv.weight.dtype))
+        bias = self.bias.to(raw.dtype)
+        one_channel = mask is None or mask.shape[1] == 1
+        if raw.is_cuda and not one_channel:
+            raise ValueError("a partial conv on CUDA takes a one-channel "
+                             "mask or none; a mask of C_in channels takes "
+                             "the general path on the CPU only")
+        use_kernel = raw.is_cuda and not (torch.is_grad_enabled() and (
+            raw.requires_grad or bias.requires_grad))
+        with span("bootstrap/pconv_mask"):
+            count("pconv_calls", 1)
+            count("pconv_out_elems", raw.numel())
+            count("pconv_mask_px", raw.shape[0] * (
+                (0 if mask is None else in_hw[0] * in_hw[1])
+                + raw.shape[2] * raw.shape[3]))
+            if use_kernel:
+                out, new_mask = pconv.mask_side_cuda(
+                    raw, mask, bias, in_ch, in_hw, k, stride, pad)
+            else:
+                # no gradient flows through the mask
+                with torch.no_grad():
+                    if one_channel:
+                        coverage = pconv.coverage_plain(
+                            mask, in_ch, in_hw, k, stride, pad, x)
+                    else:
+                        ones_k = torch.ones((1, in_ch, k, k), dtype=x.dtype,
+                                            device=x.device)
+                        coverage = F.conv2d(mask, ones_k, stride=stride,
+                                            padding=pad)
+                out, new_mask = pconv.mask_side_plain(
+                    raw, coverage, bias, float(in_ch * k * k))
+        if mask is not None and mask.shape[1] == 1:
+            return out, new_mask
         return out, new_mask.expand(out.shape)
 
 
@@ -178,7 +219,7 @@ class PartialInpaint(nn.Module):
         disparity, existing mask), NHWC f32, normalized space."""
         n = len(self.rows)
         x = data.permute(0, 3, 1, 2)
-        mask0 = masks.permute(0, 3, 1, 2).expand(x.shape).to(x.dtype)
+        mask0 = masks.permute(0, 3, 1, 2).to(x.dtype)
         col, cmask = [None] * n, [None] * n
         col[0], cmask[0] = self.stem(x, mask0)
         for r in range(1, n):
@@ -209,3 +250,27 @@ class PartialInpaint(nn.Module):
             return t.permute(0, 2, 3, 1).float()
 
         return nhwc(image), nhwc(disparity), nhwc(cmask[0][:, :1])
+
+
+def net_pconv_shapes(height: int, width: int,
+                     rows: Tuple[int, ...] = (32, 64, 128, 256)):
+    """[(C_in, C_out, k, stride, H, W, masked)] of each partial conv of one
+    ``PartialInpaint`` call on a (height, width) payload, in call order:
+    the net run on the meta device, which computes nothing."""
+    with torch.device("meta"):
+        net = PartialInpaint(rows)
+    shapes = []
+
+    def record(conv, args, _):
+        x = args[0]
+        masked = len(args) > 1 and args[1] is not None
+        shapes.append((x.shape[1], conv.conv.out_channels, conv.kernel,
+                       conv.stride, x.shape[2], x.shape[3], masked))
+
+    for m in net.modules():
+        if isinstance(m, PartialConv):
+            m.register_forward_hook(record)
+    with torch.no_grad():
+        net(torch.zeros(1, height, width, 68, device="meta"),
+            torch.zeros(1, height, width, 1, device="meta"))
+    return shapes

@@ -51,6 +51,9 @@ SOURCES = {
         "kbe_finish": ([_P, _I, _I, _P, _I, _P, _I, _P, _P] + [_I] * 4
                        + [_P, _P], _I),
     }),
+    "pconv": (["-fmad=false"], {
+        "kbe_pconv": ([_P, _I, _I, _P, _P] + [_I] * 12 + [_P] * 3, _I),
+    }),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -15,6 +15,7 @@ import torch
 
 from kbe_torch.ops import discfill as D
 from kbe_torch.ops import finish as F
+from kbe_torch.ops import pconv as P
 from kbe_torch.ops import splat as S
 from kbe_torch.ops.geometry import depth_to_points
 from tests.test_torch_finish import CASES as FINISH_CASES
@@ -323,6 +324,139 @@ def test_finish_kernel_refuses_bad_inputs(cuda):
     with pytest.raises(ValueError, match="uint8"):
         F.finish_cuda(torch.zeros(64, 64, 4, device=cuda), plan,
                       out.float())
+
+
+def _pconv_plain(raw, mask, bias, c_in, in_hw, k, stride, pad):
+    """The plain chain on the kernel's inputs."""
+    like = torch.empty((raw.shape[0],), device=raw.device)
+    coverage = P.coverage_plain(mask, c_in, in_hw, k, stride, pad, like)
+    return P.mask_side_plain(raw, coverage, bias, float(c_in * k * k))
+
+
+def _pconv_inputs(cuda, c_out, k, stride, h, w, dtype, masked, nhwc, seed):
+    g = torch.Generator().manual_seed(seed)
+    pad = k // 2
+    ho, wo = P.out_size(h, k, stride, pad), P.out_size(w, k, stride, pad)
+    raw = (torch.randn(1, c_out, ho, wo, generator=g) * 20.0).to(dtype)
+    if nhwc:
+        raw = raw.contiguous(memory_format=torch.channels_last)
+    mask = None
+    if masked:
+        mask = (torch.rand(1, 1, h, w, generator=g) > 0.2).float()
+        mask[:, :, h // 3:h // 2, w // 4:3 * w // 4] = 0.0
+    bias = torch.randn(c_out, generator=g).to(dtype)
+    return (raw.to(cuda), None if mask is None else mask.to(cuda),
+            bias.to(cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_pconv_kernel_equals_the_plain_chain_at_the_nets_shapes(cuda, dtype):
+    """Kernel ``pconv`` against the plain chain on the card, bit for bit, at
+    every (C_in, C_out, k, stride, H, W) that ``PartialInpaint`` meets at
+    1024^2, with a mask and without, channels-last as the net runs and
+    NCHW; one launch a call."""
+    from kbe_torch.models.partial_conv import net_pconv_shapes
+
+    cases = sorted({s[:6] for s in net_pconv_shapes(1024, 1024)})
+    assert len(cases) == 16
+    for n, (c_in, c_out, k, stride, h, w) in enumerate(cases):
+        for masked in (True, False):
+            for nhwc in ((True, False) if n % 4 == 0 else (True,)):
+                raw, mask, bias = _pconv_inputs(cuda, c_out, k, stride, h, w,
+                                                dtype, masked, nhwc, n)
+                args = (bias, c_in, (h, w), k, stride, k // 2)
+                P.LAUNCHES.clear()
+                got, got_m = P.mask_side_cuda(raw, mask, *args)
+                torch.cuda.synchronize()
+                assert dict(P.LAUNCHES) == {"pconv": 1}
+                want, want_m = _pconv_plain(raw, mask, *args)
+                what = (c_in, c_out, k, stride, h, w, masked, nhwc)
+                assert got.stride() == want.stride(), what
+                assert torch.equal(got_m, want_m), what
+                assert torch.equal(got, want), what
+
+
+def test_pconv_kernel_refuses_bad_inputs(cuda):
+    raw, mask, bias = _pconv_inputs(cuda, 8, 3, 1, 16, 20, torch.bfloat16,
+                                    True, True, 1)
+    args = (8, (16, 20), 3, 1, 1)
+    P.mask_side_cuda(raw, mask, bias, *args)
+    for bad in (raw.cpu(), raw.half(), raw[:, :, :, ::2],
+                raw.permute(0, 1, 3, 2), raw[0]):
+        with pytest.raises(ValueError, match="raw"):
+            P.mask_side_cuda(bad, mask, bias, *args)
+    for bad in (mask.half(), mask.expand(1, 8, 16, 20), mask[:, :, :, :10],
+                mask.cpu(), mask.transpose(2, 3).contiguous()):
+        with pytest.raises(ValueError, match="mask"):
+            P.mask_side_cuda(raw, bad, bias, *args)
+    for bad in (bias.float(), bias[:4], bias.cpu()):
+        with pytest.raises(ValueError, match="bias"):
+            P.mask_side_cuda(raw, mask, bad, *args)
+    with pytest.raises(ValueError, match="output"):
+        P.mask_side_cuda(raw, mask, bias, 8, (16, 20), 3, 2, 1)
+    with pytest.raises(ValueError, match=">= 1"):
+        P.mask_side_cuda(raw, mask, bias, 0, (16, 20), 3, 1, 1)
+
+
+def test_partial_conv_takes_the_kernel_or_refuses_on_the_card(cuda):
+    """On the card a partial conv with no gradient wanted takes kernel
+    ``pconv``, one launch; with a gradient wanted, the plain chain, equal
+    bit for bit; a mask of C_in channels or of another type than f32 is
+    refused, not sent quietly to the plain chain."""
+    from kbe_torch.models.partial_conv import PartialConv
+
+    g = torch.Generator().manual_seed(5)
+    conv = PartialConv(8, 16).to(cuda)
+    x = torch.randn(1, 8, 20, 24, generator=g).to(cuda)
+    mask = (torch.rand(1, 1, 20, 24, generator=g) > 0.3).float().to(cuda)
+    P.LAUNCHES.clear()
+    with torch.no_grad():
+        out, new_mask = conv(x, mask)
+    assert dict(P.LAUNCHES) == {"pconv": 1}
+    P.LAUNCHES.clear()
+    grad_out, grad_mask = conv(x, mask)
+    assert not P.LAUNCHES and grad_out.requires_grad
+    assert torch.equal(out, grad_out.detach())
+    assert torch.equal(new_mask, grad_mask)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="one-channel"):
+            conv(x, mask.expand(1, 8, 20, 24).contiguous())
+        with pytest.raises(ValueError, match="mask"):
+            conv.to(torch.bfloat16)(x.bfloat16(), mask)
+
+
+def test_all_nets_effect_is_the_same_on_the_kernel_and_the_plain_chain(
+        cuda, monkeypatch):
+    """The residual refine, the partial-conv nets and the dual colour/depth
+    pair at 256^2, 5 steps, production precisions: the partial convs take
+    kernel ``pconv`` (one launch each, as ``pconv_calls`` counts them,
+    four nets' worth a video) and give the frames the plain chain gives,
+    bit for bit."""
+    from kbe_torch.config import EffectConfig
+    from kbe_torch.data import demo_scene_image
+    from kbe_torch.models import partial_conv as PC
+    from kbe_torch.pipeline import KenBurnsPipeline
+    from kbe_torch.utils import logging as trace
+
+    pipe = KenBurnsPipeline.create(
+        0, effect=EffectConfig(num_steps=5), device=cuda,
+        dtype=torch.bfloat16, depth_dtype=torch.float32,
+        pretrained_refine=True, partial_inpainting=True, inpaint_depth=True)
+    image = demo_scene_image(256, 256)
+    P.LAUNCHES.clear()
+    trace.reset_counters()
+    with trace.tracing():
+        frames = pipe(image)
+    counts = trace.counters()
+    trace.reset_counters()
+    assert counts["pconv_calls"] == 4 * 57 == P.LAUNCHES["pconv"]
+    monkeypatch.setattr(PC.pconv, "mask_side_cuda", _pconv_plain)
+    P.LAUNCHES.clear()
+    plain = pipe(image)
+    assert not P.LAUNCHES
+    assert (frames == plain).all()
+    assert (frames[0] != frames[-1]).any()
 
 
 def test_autozoom_on_the_card_picks_the_cpu_window(cuda):

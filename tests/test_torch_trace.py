@@ -8,6 +8,7 @@ inside the span that calls it, and the counts equal what
 ``kenburns.path_stats`` finds by rendering the poses again.
 """
 
+import collections
 import json
 
 import pytest
@@ -38,7 +39,11 @@ PARENTS = {
     # the plain finish's steps (the CPU's path; the card's is one kernel)
     **{f"frame/{s}": "frame/finish"
        for s in ("quantise", "crop", "resize", "round")},
+    # the partial convs' mask side: the partial-conv nets' only
+    "bootstrap/pconv_mask": "bootstrap/inpaint",
 }
+PARTIAL_ONLY = {"bootstrap/pconv_mask"}
+PCONVS = 57  # the partial convs of one ``PartialInpaint`` call
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -136,10 +141,11 @@ def test_frames_are_the_same_with_tracing_on_and_off(run):
 
 def test_every_span_appears_inside_its_parent(run):
     spans = run["spans_on"]
-    assert {name for name, _ in spans} == set(PARENTS)
+    assert {name for name, _ in spans} == set(PARENTS) - PARTIAL_ONLY
     for name, parent in spans:
         assert parent == PARENTS[name], (name, parent)
-    calls = {name: sum(1 for n, _ in spans if n == name) for name in PARENTS}
+    calls = {name: sum(1 for n, _ in spans if n == name)
+             for name in set(PARENTS) - PARTIAL_ONLY}
     for name, n in calls.items():
         want = (STEPS if name.startswith("frame/")
                 else 2 if name.startswith(("bootstrap/",
@@ -192,3 +198,28 @@ def test_dolly_builds_once_has_no_bootstrap_and_profiler_trace_counts(
     assert not any(str(n).startswith(("kbe/bootstrap",
                                       "kbe/front_end/bootstrap"))
                    for n in names)
+
+
+def test_the_all_nets_effect_nests_the_mask_side_in_its_inpainting(run):
+    """The residual refine, the partial-conv nets and the dual colour/depth
+    pair: every span of the default effect, and the mask side of each
+    partial conv inside ``bootstrap/inpaint``, whose four calls (two steps,
+    the colour and the depth net) hold 57 each; the frames are the same
+    with tracing on and off."""
+    pipe = KenBurnsPipeline.create(0, effect=EffectConfig(num_steps=STEPS),
+                                   device="cpu", pretrained_refine=True,
+                                   partial_inpainting=True,
+                                   inpaint_depth=True)
+    frames_off = pipe(run["image"])
+    with profile(activities=[ProfilerActivity.CPU]) as on, trace.tracing():
+        frames_on = pipe(run["image"])
+    counts = trace.counters()
+    spans = _kbe_spans(on)
+    assert (frames_off == frames_on).all()
+    assert {name for name, _ in spans} == set(PARENTS)
+    for name, parent in spans:
+        assert parent == PARENTS[name], (name, parent)
+    calls = collections.Counter(name for name, _ in spans)
+    assert calls["bootstrap/inpaint"] == 4
+    assert calls["bootstrap/pconv_mask"] == 4 * PCONVS
+    assert counts["pconv_calls"] == 4 * PCONVS

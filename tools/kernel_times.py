@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Time the splat's front half, its accumulation, the fill, the frame's
-finish, the greedy NMS and the splat's gradient of a kbe_torch tree on the
-card.
+finish, the greedy NMS, the splat's gradient and the partial conv's mask
+side of a kbe_torch tree on the card.
 
     python tools/kernel_times.py [--tree DIR] [--sets 5] [--reps 20]
-        [--only front,accumulate,fill,finish,nms,grad]
+        [--only front,accumulate,fill,finish,nms,grad,pconv]
 
 Imports ``kbe_torch`` from ``DIR`` (default: this checkout), so one call
 can time two versions of the kernels in turns on one card, for example
@@ -37,7 +37,11 @@ grad, h, w)``. The inputs are those of ``chip_smoke.py`` (its
        at 384x512 (196,608 points, no mask), C=68, the upstream gradient
        of ``grad_check``; and the same upstream times 2^100, whose
        quotients all take the IEEE division (outside the
-       multiply-and-FMA route's range, where the tree has one).
+       multiply-and-FMA route's range, where the tree has one);
+  (m)  the partial conv's mask side at the inpainting net's stem (68 -> 32
+       channels, 1024^2) and (m3) at its row 3 (256 channels, 128^2), bf16
+       channels-last, a seeded mask with a hole (``pconv.mask_side_cuda``;
+       null for a tree that has no such kernel), beside the plain chain.
 Prints the card's name and power limit, then one JSON line: the median over
 ``--sets`` of the mean ms of ``--reps`` calls (CUDA events); for the front
 half, the finish, the NMS and the gradient also, from ``torch.profiler`` over
@@ -287,13 +291,39 @@ def grad_times(cs, args, med):
             "grad_equal_to_plain": equal}
 
 
+def pconv_times(cs, args, med):
+    """(m) and (m3) (see above): call ms, device ms, the plain chain's ms,
+    the bound (``benchmark/pconv_counts.py``'s least bytes) and equality with the plain
+    chain."""
+    import torch
+
+    if importlib.util.find_spec("kbe_torch.ops.pconv") is None:
+        return {"pconv": None}
+    out = {}
+    for name, c_in, c_out, size in (("pconv_stem", 68, 32, 1024),
+                                    ("pconv_row3", 256, 256, 128)):
+        fn, plain, nbytes = cs.pconv_case(c_in, c_out, 3, 1, size, size)
+        got, want = fn(), plain()
+        out[name] = {
+            "ms": med(fn),
+            "device_ms": statistics.median(
+                cs.device_ms(fn, args.reps, ("pconv_kernel",))[0]
+                for _ in range(args.sets)),
+            "plain_ms": med(plain), "bound_ms": cs.bound(nbytes, 0)[0],
+            "bytes": nbytes,
+            "equal_to_plain": bool(torch.equal(got[0], want[0])
+                                   and torch.equal(got[1], want[1]))}
+    return {"pconv": out}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--tree", default=HERE)
     parser.add_argument("--sets", type=int, default=5)
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--only",
-                        default="front,accumulate,fill,finish,nms,grad",
+                        default="front,accumulate,fill,finish,nms,grad,"
+                                "pconv",
                         help="comma-separated groups to time")
     args = parser.parse_args()
     only = set(args.only.split(","))
@@ -324,6 +354,8 @@ def main() -> int:
         out.update(nms_times(cs, args, med))
     if "grad" in only:
         out.update(grad_times(cs, args, med))
+    if "pconv" in only:
+        out.update(pconv_times(cs, args, med))
     print(json.dumps(out), flush=True)
     return 0
 
