@@ -16,8 +16,8 @@ Each stage runs in a span of ``kbe_torch.utils.logging`` (``kbe/video``,
 ``kbe/front_end/...``, ``kbe/bootstrap/...``, ``kbe/pose_loop``,
 ``kbe/frame/...``), which costs a flag check while tracing is off; while it
 is on, ``KenBurnsPipeline.__call__`` counts ``videos``, ``bytes_to_host``
-and ``effect_builds``, ``scene_of`` ``valid_points`` and the fill
-``hole_pixels``.
+and ``effect_builds``, ``frames_to_host`` ``pinned_allocs``, ``scene_of``
+``valid_points`` and the fill ``hole_pixels``.
 
 ``EffectConfig.splat_method`` and ``fill_impl`` select the entry point that
 the JAX package selects with them (see ``build_effect_fn``). On CUDA tensors
@@ -592,6 +592,30 @@ def path_stats(fn, models, image, height: int, width: int, zoom, effect):
     }
 
 
+def _host_allocs() -> int:
+    """The page-locked blocks torch's caching host allocator has created
+    (its stats are empty until the first)."""
+    return torch.cuda.host_memory_stats().get("num_host_alloc", 0)
+
+
+def frames_to_host(frames: torch.Tensor) -> np.ndarray:
+    """``frames`` as a numpy array on the host. Frames on the CPU are
+    handed back as they are. Frames on a CUDA device are copied, in one
+    synchronous ``copy_``, into page-locked memory from torch's caching
+    host allocator: the copy runs at the link's rate, with no fresh
+    pageable array to fault in and no staging through a bounce buffer. The
+    array holds its block, which the allocator hands out again only once
+    the array is dropped. Counts ``pinned_allocs``: the page-locked blocks
+    the copy had to create (0 where a cached one was free)."""
+    if not frames.is_cuda:
+        return frames.numpy()
+    made = _host_allocs()
+    host = torch.empty(frames.shape, dtype=frames.dtype, pin_memory=True)
+    count("pinned_allocs", _host_allocs() - made)
+    host.copy_(frames)
+    return host.numpy()
+
+
 @dataclasses.dataclass
 class KenBurnsPipeline:
     """User-facing pipeline: owns the nets and the built effects."""
@@ -656,7 +680,13 @@ class KenBurnsPipeline:
                  zoom: Optional[ZoomSettings] = None) -> np.ndarray:
         """``image``: (H, W, 3) float [0, 1] -> (num_steps, H, W, 3)
         uint8. The call is the span ``kbe/video``, its ordinal among this
-        pipeline's calls in its args."""
+        pipeline's calls in its args.
+
+        On a CUDA device the array lives in page-locked memory from torch's
+        caching host allocator (``frames_to_host``): each video held keeps
+        a block of its own, and a dropped one's block serves a later video.
+        A caller that keeps many videos can copy one out with
+        ``np.array(out)``."""
         self._videos += 1
         count("videos", 1)
         with span("video", ordinal=self._videos):
@@ -670,7 +700,7 @@ class KenBurnsPipeline:
                                     device=self.device)[None]
             frames = fn(self.models, x)
             with span("to_host"):
-                out = frames.cpu().numpy()
+                out = frames_to_host(frames)
             count("bytes_to_host", out.nbytes)
         if tracing_on():
             # the copy has synchronised: the device's counts are ready

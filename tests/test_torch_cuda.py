@@ -10,6 +10,7 @@ ascending entry order, the order the sum pass reproduces; on the card
 ``index_add_`` uses atomics). Two renders of one cloud are bit-equal.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -457,6 +458,44 @@ def test_all_nets_effect_is_the_same_on_the_kernel_and_the_plain_chain(
     assert not P.LAUNCHES
     assert (frames == plain).all()
     assert (frames[0] != frames[-1]).any()
+
+
+def test_videos_come_back_in_page_locked_blocks_kept_apart(cuda):
+    """``__call__`` at 256^2, 5 poses: the array is ``render_frames``'s
+    frames bit for bit, in page-locked memory; two videos held at once
+    share no memory; once the first is dropped, a third video takes a
+    cached block and counts no ``pinned_allocs``."""
+    from kbe_torch.config import EffectConfig, ZoomSettings
+    from kbe_torch.data import demo_scene_image
+    from kbe_torch.pipeline import KenBurnsPipeline
+    from kbe_torch.utils import logging as trace
+
+    pipe = KenBurnsPipeline.create(0, effect=EffectConfig(num_steps=5),
+                                   device=cuda)
+    image = demo_scene_image(256, 256)
+    first = pipe(image)
+    fn = pipe.effect_fn(256, 256, ZoomSettings.default_3d(256, 256))
+    frames = fn.render_frames(fn.front_end(pipe.models, torch.as_tensor(
+        np.asarray(image, np.float32), device=cuda)[None]))
+    want = frames.cpu().numpy()
+    assert first.shape == (5, 256, 256, 3) and first.dtype == np.uint8
+    assert np.array_equal(first, want)
+    assert (first[0] != first[-1]).any()
+    assert torch.from_numpy(first).is_pinned()
+    second = pipe(image)
+    assert not np.shares_memory(first, second)
+    assert np.array_equal(second, want)
+    del first
+    trace.reset_counters()
+    with trace.tracing():
+        third = pipe(image)
+    counts = trace.counters()
+    trace.reset_counters()
+    assert counts["pinned_allocs"] == 0
+    assert counts["bytes_to_host"] == third.nbytes
+    assert torch.from_numpy(third).is_pinned()
+    assert not np.shares_memory(second, third)
+    assert np.array_equal(third, want)
 
 
 def test_autozoom_on_the_card_picks_the_cpu_window(cuda):

@@ -11,6 +11,7 @@ inside the span that calls it, and the counts equal what
 import collections
 import json
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -18,7 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 from kbe_torch.config import EffectConfig, ZoomSettings
 from kbe_torch.data import demo_scene_image
 from kbe_torch.pipeline import KenBurnsPipeline
-from kbe_torch.pipeline.kenburns import path_stats
+from kbe_torch.pipeline.kenburns import frames_to_host, path_stats
 from kbe_torch.utils import logging as trace
 
 SIZE, STEPS = 32, 3
@@ -163,6 +164,24 @@ def test_counts_equal_what_path_stats_finds(run):
     assert counts["bytes_to_host"] == run["frames_on"].nbytes
     assert "effect_builds" not in counts  # the second video of its shape
     assert "finish_kernel_frames" not in counts  # the plain finish here
+
+
+def test_on_the_cpu_the_frames_come_back_unpinned_with_no_pinned_allocs(run):
+    """On the CPU ``__call__`` hands the effect's frames back as they are:
+    not page-locked, the array over the tensor's own memory, their bytes in
+    ``bytes_to_host`` and no ``pinned_allocs`` counted (the card's copy
+    into page-locked blocks is ``tests/test_torch_cuda.py``'s)."""
+    out = run["frames_on"]
+    assert isinstance(out, np.ndarray) and out.dtype == np.uint8
+    assert out.shape == (STEPS, SIZE, SIZE, 3)
+    assert not torch.from_numpy(out).is_pinned()
+    assert run["counts_on"]["bytes_to_host"] == out.nbytes
+    assert "pinned_allocs" not in run["counts_on"]
+    frames = torch.arange(24, dtype=torch.uint8).reshape(1, 2, 4, 3)
+    with trace.tracing():
+        host = frames_to_host(frames)
+    assert np.shares_memory(host, frames.numpy())
+    assert trace.counters() == {}
 
 
 def test_dolly_builds_once_has_no_bootstrap_and_profiler_trace_counts(

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Time the splat's front half, its accumulation, the fill, the frame's
-finish, the greedy NMS, the splat's gradient and the partial conv's mask
-side of a kbe_torch tree on the card.
+finish, the greedy NMS, the splat's gradient, the partial conv's mask
+side and the video's copy to the host of a kbe_torch tree on the card.
 
     python tools/kernel_times.py [--tree DIR] [--sets 5] [--reps 20]
-        [--only front,accumulate,fill,finish,nms,grad,pconv]
+        [--only front,accumulate,fill,finish,nms,grad,pconv,to_host]
 
 Imports ``kbe_torch`` from ``DIR`` (default: this checkout), so one call
 can time two versions of the kernels in turns on one card, for example
@@ -41,7 +41,11 @@ grad, h, w)``. The inputs are those of ``chip_smoke.py`` (its
   (m)  the partial conv's mask side at the inpainting net's stem (68 -> 32
        channels, 1024^2) and (m3) at its row 3 (256 channels, 128^2), bf16
        channels-last, a seeded mask with a hole (``pconv.mask_side_cuda``;
-       null for a tree that has no such kernel), beside the plain chain.
+       null for a tree that has no such kernel), beside the plain chain;
+  (h)  a (75, 1024, 1024, 3) uint8 video's copy from the card into a fresh
+       pageable array (``.cpu().numpy()``) and into a reused page-locked
+       block (``kenburns.frames_to_host``; null for a tree that has no
+       such function), and the first page-locked allocation of its size.
 Prints the card's name and power limit, then one JSON line: the median over
 ``--sets`` of the mean ms of ``--reps`` calls (CUDA events); for the front
 half, the finish, the NMS and the gradient also, from ``torch.profiler`` over
@@ -316,6 +320,59 @@ def pconv_times(cs, args, med):
     return {"pconv": out}
 
 
+def to_host_times(cs, args):
+    """(h) (see above): for each copy, call ms (host clock around
+    ``--reps`` synchronous copies, the median over ``--sets``), GB/s at
+    that time, and the device ms of its memcpy (``torch.profiler``); the
+    ms of the process's first page-locked allocation of the video's size
+    and whether it made a new block; and whether the copies are equal."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from kbe_torch.pipeline import kenburns
+
+    frames = torch.randint(0, 256, (75, 1024, 1024, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(7)).cuda()
+    nbytes = frames.numel()
+
+    def blocks():
+        return torch.cuda.host_memory_stats().get("num_host_alloc", 0)
+
+    made = blocks()
+    t = time.perf_counter()
+    torch.empty(frames.shape, dtype=torch.uint8, pin_memory=True)
+    first_ms = (time.perf_counter() - t) * 1e3
+    new_block = blocks() > made
+
+    def call_ms(fn):
+        fn()
+        runs = []
+        for _ in range(args.sets):
+            t = time.perf_counter()
+            for _ in range(args.reps):
+                fn()
+            runs.append((time.perf_counter() - t) / args.reps * 1e3)
+        return statistics.median(runs)
+
+    copies = {"pageable": lambda: frames.cpu().numpy()}
+    pinned = getattr(kenburns, "frames_to_host", None)
+    if pinned is not None:
+        copies["pinned"] = lambda: pinned(frames)
+    out = {"bytes": nbytes, "first_pinned_alloc_ms": first_ms,
+           "first_pinned_alloc_new_block": new_block, "pinned": None}
+    for name, fn in copies.items():
+        ms = call_ms(fn)
+        out[name] = {"ms": ms, "gbps": nbytes / ms / 1e6,
+                     "device_ms": cs.device_ms(fn, args.reps,
+                                               ("Memcpy",))[0]}
+    if pinned is not None:
+        out["equal"] = bool(np.array_equal(copies["pageable"](),
+                                           copies["pinned"]()))
+    return {"to_host": out}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--tree", default=HERE)
@@ -323,7 +380,7 @@ def main() -> int:
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--only",
                         default="front,accumulate,fill,finish,nms,grad,"
-                                "pconv",
+                                "pconv,to_host",
                         help="comma-separated groups to time")
     args = parser.parse_args()
     only = set(args.only.split(","))
@@ -356,6 +413,8 @@ def main() -> int:
         out.update(grad_times(cs, args, med))
     if "pconv" in only:
         out.update(pconv_times(cs, args, med))
+    if "to_host" in only:
+        out.update(to_host_times(cs, args))
     print(json.dumps(out), flush=True)
     return 0
 
